@@ -1,0 +1,228 @@
+"""BDF time evolution of the TRPL model with the fused log-likelihood.
+
+``solve`` advances a batch of simulations over a fixed-dt horizon.  With
+``method="fused_horizon_chord"`` and fused observations the whole horizon
+is one launch of the horizon kernel (ops/horizon_kernel.py); otherwise a
+Python step loop runs coupled Newton (models/newton.py) step by step.
+
+The likelihood is fused into the time loop: the loop carries running sums
+of the log-residual and its square, and the sampled ``mag_offset`` enters
+in closed form afterwards: sum((e + m)^2) = sum(e^2) + 2 m sum(e) + n m^2.
+Non-convergence is a per-sample flag.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .newton import coupled_newton_step
+from .trpl import BDF_TABLE, HISTORY, MatParams
+
+
+class SolverConfig(NamedTuple):
+    """Static solve configuration (nondimensional grid: dt == 1)."""
+    num_steps: int                 # T: number of BDF steps
+    pl_stride: int = 1             # record PL every pl_stride steps
+    tol: float = 1e-7              # Newton convergence tolerance
+    max_iters: int = 10000         # Newton iteration cap per step
+    step_tol: Optional[float] = None  # also accept max|dX| <= step_tol*max|X|
+    record_state_stride: Optional[int] = None
+    record_iters: bool = False
+    predictor: str = "previous"    # previous | linear | quadratic | geometric
+    method: str = "coupled_newton"  # coupled_newton | fused_horizon_chord
+    chord_strict: bool = False     # chord acceptance profile; solve_multiphase
+    #                                forces True (ops/horizon_kernel._chord_knobs)
+
+
+class FusedObs(NamedTuple):
+    """Observations for in-loop likelihood accumulation.
+
+    ``values``: (num_exp, T // pl_stride + 1) log10 PL observations on the
+    simulation grid.  ``log_scale``: log10 of the PL redimensionalization
+    factor 1/(dx^2 dt).  ``min_val``: clamp floor applied to PL before
+    log10.  ``mask``: optional (num_exp, n_pl) nonnegative per-point
+    weights w_i; the sums are sse = sum w_i e_i^2 and esum = sum w_i e_i
+    (weight 0 = padding, 1/sigma^2 = the sigma-weighted likelihood).
+    """
+    values: torch.Tensor
+    log_scale: float
+    min_val: float
+    normalize: bool = False
+    mask: Optional[torch.Tensor] = None
+
+
+class SolveResult(NamedTuple):
+    pl: Optional[torch.Tensor]        # (batch, T + 1) nondim PL, if recorded
+    n: torch.Tensor                   # final N (batch, L)
+    p: torch.Tensor
+    e: torch.Tensor
+    converged: torch.Tensor           # (batch,) bool
+    max_newton_iters: torch.Tensor    # scalar: worst per-step iterations
+    sse: Optional[torch.Tensor]       # (num_exp, batch) running sum of w e^2
+    err_sum: Optional[torch.Tensor]   # (num_exp, batch) running sum of w e
+    sample_iters: Optional[torch.Tensor] = None   # (batch,) Newton updates
+    full_solves: Optional[torch.Tensor] = None    # (batch,) Jacobian refreshes
+    #                                               (chord kernel telemetry)
+    tile_body_iters: Optional[torch.Tensor] = None  # (batch,) executed Newton
+    #                                               iterations (chord + full)
+
+
+def pl_observable(N, P, mp: MatParams):
+    """Nondimensional PL: rate * sum_n(N P - n0 p0) (reference: pvSimPCR.py:276-281)."""
+    L = N.shape[-1]
+    return mp.rate * ((N * P).sum(-1) - L * mp.n0 * mp.p0)
+
+
+def log_floor(min_val: float, dtype: torch.dtype) -> float:
+    """The PL clamp floor, strictly positive in the compute dtype:
+    min_val = sys.float_info.min rounds to 0.0 in float32, and log10(0) =
+    -inf would poison the coarse-phase dense output (mixed-sign weights ->
+    inf - inf = NaN)."""
+    return max(float(torch.tensor(min_val, dtype=dtype)),
+               torch.finfo(dtype).tiny)
+
+
+def _log_pl(pl, obs: FusedObs, pl0):
+    val = pl / pl0 if obs.normalize else pl
+    out = torch.log10(torch.clamp_min(val, log_floor(obs.min_val, val.dtype)))
+    return out if obs.normalize else out + _scalar(obs.log_scale, out)
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim tensor in ``like``'s dtype and device, so that arithmetic on
+    it rounds in the compute dtype as the JAX package's does."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _bdf_coeffs(t: int, like: torch.Tensor):
+    """(a0, {slot: weight}) for step t -> t+1 with the rolling slot layout."""
+    a = BDF_TABLE[min(t, 4)]
+    slots = [(t - m) % HISTORY for m in range(5)]
+    return _scalar(a[0], like), {s: float(a[m + 1]) for m, s in enumerate(slots)}
+
+
+def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol):
+    """One coupled-Newton BDF step on the rolling histories (6, batch, L);
+    shared by ``solve`` and the coarse phases of models/twophase.py.
+    Updates the histories in place and returns (N, P, E, iters, ok)."""
+    a0, w = _bdf_coeffs(t, nh)
+    bn = sum(_scalar(w.get(s, 0.0), nh) * nh[s] for s in range(HISTORY))
+    bp = sum(_scalar(w.get(s, 0.0), ph) * ph[s] for s in range(HISTORY))
+    be = sum(_scalar(w.get(s, 0.0), eh) * eh[s] for s in range(HISTORY))
+    k = t % HISTORY
+    kp = (t + 1) % HISTORY
+    Nk, Pk = nh[k], ph[k]
+    if cfg.predictor in ("linear", "quadratic", "geometric"):
+        # Extrapolated initial iterate with a positivity fallback (the same
+        # fixed point; fewer Newton solves on smooth stretches).
+        ko = (t - 1) % HISTORY
+        ramp = float(min(t, 1))
+        d1n = Nk - nh[ko]
+        d1p = Pk - ph[ko]
+        Nx = Nk + ramp * d1n
+        Px = Pk + ramp * d1p
+        if cfg.predictor == "quadratic":
+            ko2 = (t - 2) % HISTORY
+            ramp2 = float(t >= 2)
+            Nx = Nx + ramp2 * (d1n - (nh[ko] - nh[ko2]))
+            Px = Px + ramp2 * (d1p - (ph[ko] - ph[ko2]))
+        if cfg.predictor == "geometric":
+            Nm, Pm = nh[ko], ph[ko]
+            Nx = torch.where(Nm > 0, Nk * (Nk / torch.where(Nm > 0, Nm, 1.0)), Nx)
+            Px = torch.where(Pm > 0, Pk * (Pk / torch.where(Pm > 0, Pm, 1.0)), Px)
+        Nk = torch.where(Nx > 0, Nx, Nk)
+        Pk = torch.where(Px > 0, Px, Pk)
+    Nn, Pn, En, iters, ok = coupled_newton_step(
+        Nk, Pk, bn, bp, be, mp, a0, tol, cfg.max_iters, step_tol=step_tol)
+    nh[kp] = Nn
+    ph[kp] = Pn
+    eh[kp] = En
+    return Nn, Pn, En, iters, ok
+
+
+def init_history(n_init, p_init, e_init):
+    batch, L = n_init.shape
+    hs = []
+    for x in (n_init, p_init, e_init):
+        h = torch.zeros((HISTORY, batch, L), dtype=x.dtype, device=x.device)
+        h[0] = x
+        hs.append(h)
+    return tuple(hs)
+
+
+def _check_supported(cfg: SolverConfig):
+    if cfg.pl_stride != 1 or cfg.record_state_stride is not None or cfg.record_iters:
+        raise NotImplementedError(
+            "pl_stride > 1, record_state_stride and record_iters are not "
+            "ported yet: ROADMAP A14")
+    if cfg.method not in ("coupled_newton", "fused_horizon_chord"):
+        from ..utils.validate import validate_solver
+        validate_solver(cfg.method, cfg.predictor)
+
+
+def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
+          obs: Optional[FusedObs] = None, record_pl: bool = True,
+          kernel=None) -> SolveResult:
+    """Evolve a batch of TRPL simulations for cfg.num_steps BDF steps.
+
+    Args:
+      mat_nd: (batch, 12) nondimensionalized material parameters.
+      n_init/p_init/e_init: (batch, L) initial state (E on edges 0..L-1).
+      obs: optional fused observations (enables in-loop likelihood).
+      record_pl: emit the PL trace.
+      kernel: the horizon kernel's entry for fused chord solves (default
+        ops.horizon_kernel.horizon_chord); tests pass its plain version.
+    """
+    _check_supported(cfg)
+    if cfg.method == "fused_horizon_chord" and obs is not None and not record_pl:
+        from ..ops.horizon_kernel import solve_horizon_fused
+        return solve_horizon_fused(mat_nd, n_init, p_init, cfg, obs,
+                                   e_init=e_init, kernel=kernel)
+
+    mp = MatParams.from_array(mat_nd)
+    batch, L = n_init.shape
+    dev = n_init.device
+    tol = _scalar(cfg.tol, n_init)
+    step_tol = _scalar(0.0 if cfg.step_tol is None else cfg.step_tol, n_init)
+    nh, ph, eh = init_history(n_init, p_init, e_init)
+    pl0 = pl_observable(n_init, p_init, mp)
+    if obs is not None:
+        e0 = _log_pl(pl0, obs, pl0) - obs.values[:, 0:1]      # (num_exp, batch)
+        if obs.mask is not None:
+            m0 = obs.mask[:, 0:1]
+            sse, esum = m0 * e0 ** 2, m0 * e0
+        else:
+            sse, esum = e0 ** 2, e0
+    conv = torch.ones(batch, dtype=torch.bool, device=dev)
+    samp_it = torch.zeros(batch, dtype=torch.int32, device=dev)
+    max_it = torch.zeros((), dtype=torch.int32, device=dev)
+    pls = [pl0]
+    for j in range(cfg.num_steps):
+        Nn, Pn, _, iters, ok = bdf_step(j, nh, ph, eh, mp, cfg, tol, step_tol)
+        samp_it = samp_it + iters
+        max_it = torch.maximum(max_it, iters.max())
+        pl = pl_observable(Nn, Pn, mp)
+        if record_pl:
+            pls.append(pl)
+        if obs is not None:
+            e = _log_pl(pl, obs, pl0) - obs.values[:, j + 1:j + 2]
+            if obs.mask is not None:
+                # A step whose observation points are all mask padding
+                # carries no likelihood weight and cannot fail a sample.
+                mcol = obs.mask[:, j + 1:j + 2]
+                ok = ok | (mcol.sum() == 0)
+                sse = sse + mcol * e ** 2
+                esum = esum + mcol * e
+            else:
+                sse = sse + e ** 2
+                esum = esum + e
+        conv = conv & ok
+    k_final = cfg.num_steps % HISTORY
+    return SolveResult(
+        pl=torch.stack(pls, dim=1) if record_pl else None,
+        n=nh[k_final], p=ph[k_final], e=eh[k_final], converged=conv,
+        max_newton_iters=max_it,
+        sse=sse if obs is not None else None,
+        err_sum=esum if obs is not None else None,
+        sample_iters=samp_it)

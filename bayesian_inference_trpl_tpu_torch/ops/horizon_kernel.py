@@ -1,0 +1,575 @@
+"""The fused-horizon chord kernel: a whole fixed-dt BDF phase in one launch.
+
+Replaces ``horizon_kernel._kernel`` of the JAX package
+(bayesian_inference_trpl_tpu/ops/pallas/horizon_kernel.py:447-746, launched
+by ``_call`` at :761-902) in its two modes on the main path:
+
+* stride 1 (``solve_horizon_fused``): the fine phase;
+* stride S (``solve_coarse_phase_fused``): one coarse rung of the ladder,
+  adding cubic log-space dense output at the S fine observation points of
+  each coarse step.
+
+Per step, for every sample: rolling 6-slot N/P/E histories with the BDF1->5
+ramp, the extrapolated predictor with positivity fallback, chord Newton
+(a cheap residual check, then either a skip, chord iterations on a cached
+PCR factorization, or a full Jacobian refresh), the E update, and the
+fused likelihood.
+
+Three pieces live here:
+
+* :func:`horizon_chord` -- the wrapper.  On a CUDA tensor it launches the
+  hand-written kernel (csrc/horizon_kernel.cu, built with nvcc into a
+  plain-C shared library and called through ctypes) or raises; on a CPU
+  tensor it runs the plain version.
+* :func:`horizon_chord_plain` -- the plain PyTorch version of the same
+  function: a Python step loop over models/newton.py and
+  ops/block_tridiag.py.  Its ``group`` argument sets how many samples share
+  the three block-wide decisions of chord Newton (skip the step, leave the
+  iteration loop, refresh the Jacobian).  The CUDA kernel runs one sample
+  per thread block, so it is held to ``group=1``; the JAX kernel takes them
+  over its whole sample tile, so it is held to ``group`` = the tile.
+* :func:`from_jax_inputs` -- turns the JAX package's inputs (as numpy) into
+  this port's tensors and configs, so that tests feed both the same thing.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models.newton import residuals_and_errors, residuals_and_jacobian
+from ..models.solver import (FusedObs, SolveResult, SolverConfig, _log_pl,
+                             _scalar, init_history, log_floor, pl_observable)
+from ..models.trpl import (BDF_TABLE, HISTORY, MatParams, SKIP_ACCEPT_FACTOR,
+                           STEP_TOL_RESIDUAL_GUARD, update_e)
+from .block_tridiag import block_pcr_apply, block_pcr_reduce
+
+# Chord refresh policy, read from the same environment variables and with
+# the same defaults as the JAX package (horizon_kernel.py:45-92).  Every
+# knob is a runtime argument of the kernel.
+CHORD_BUDGET = int(os.environ.get("TRPL_CHORD_BUDGET", "3"))
+CHORD_STALL = float(os.environ.get("TRPL_CHORD_STALL", "0.7"))
+CHORD_STALL_STRICT = float(os.environ.get("TRPL_CHORD_STALL_STRICT", "0.5"))
+CHORD_SKIP_TIGHTEN = float(os.environ.get("TRPL_CHORD_SKIP_TIGHTEN", "1.0"))
+CHORD_SETTLE_GUARD = float(os.environ.get("TRPL_CHORD_SETTLE_GUARD", "10.0"))
+STRICT_SETTLE_GUARD = 0.0
+STRICT_SKIP_TIGHTEN = 0.1
+
+PRED_ORDER = {"previous": 0, "linear": 1, "quadratic": 2, "geometric": 3}
+
+# Launches of the CUDA kernel per mode, counted by horizon_chord where it
+# launches; chip_smoke.py zeroes them around the main path.
+launches = {"stride_1": 0, "stride_s": 0}
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "horizon_kernel.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "trpl_torch_kernels"
+_LIB_NAME = "libtrpl_torch_kernels.so"
+_lib = None
+build_info = {}
+
+
+def _chord_knobs(cfg: SolverConfig):
+    """(settle_guard, skip_tighten, stall) for a SolverConfig's profile."""
+    if cfg.chord_strict:
+        return STRICT_SETTLE_GUARD, STRICT_SKIP_TIGHTEN, CHORD_STALL_STRICT
+    return CHORD_SETTLE_GUARD, CHORD_SKIP_TIGHTEN, CHORD_STALL
+
+
+class HorizonParams(NamedTuple):
+    """Scalar arguments of one horizon launch."""
+    stride: int               # 1: fine phase; S > 1: coarse rung
+    tol: float
+    step_tol: float
+    log_scale: float          # ignored when normalize
+    min_val: float
+    max_iters: int
+    normalize: bool
+    pred_order: int           # PRED_ORDER
+    settle_guard: float
+    skip_tighten: float
+    stall: float
+    chord_budget: int = CHORD_BUDGET
+    skip_accept_factor: float = SKIP_ACCEPT_FACTOR
+    step_tol_guard: float = STEP_TOL_RESIDUAL_GUARD
+    approx_inv: bool = False  # fast reciprocal + one Newton refinement
+
+
+class HorizonOut(NamedTuple):
+    sse: torch.Tensor         # (num_exp, batch)
+    esum: torch.Tensor        # (num_exp, batch)
+    conv: torch.Tensor        # (batch,) bool
+    its: torch.Tensor         # (batch,) int32 Newton updates
+    maxit: torch.Tensor       # (batch,) int32 worst per-step updates
+    n: torch.Tensor           # (batch, L) final state
+    p: torch.Tensor
+    e: torch.Tensor
+    fulls: torch.Tensor       # (batch,) int32 Jacobian refreshes of the group
+    execs: torch.Tensor       # (batch,) int32 executed iterations of the group
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _select(sel, new, old):
+    """Leafwise torch.where over the nested cache tuples; sel is (batch,)."""
+    if isinstance(new, tuple):
+        return tuple(_select(sel, a, b) for a, b in zip(new, old))
+    return torch.where(sel[:, None], new, old)
+
+
+class _Chord:
+    """Chord Newton with a PCR factorization cached across time steps; the
+    state of one launch (cache, cache-valid flags, telemetry per group)."""
+
+    def __init__(self, batch, group, device, prm: HorizonParams, tol):
+        if batch % group:
+            raise ValueError(f"batch {batch} not divisible by group {group}")
+        self.group = group
+        self.G = batch // group
+        self.prm = prm
+        self.tol = tol
+        self.skip_tol = tol * prm.skip_accept_factor * prm.skip_tighten
+        self.guard_full = tol * prm.step_tol_guard
+        self.guard_chord = tol * prm.settle_guard
+        self.cache = None
+        self.cval = torch.zeros(self.G, dtype=torch.bool, device=device)
+        self.fulls = torch.zeros(self.G, dtype=torch.int32, device=device)
+        self.execs = torch.zeros(self.G, dtype=torch.int32, device=device)
+        self.recip = None
+        if prm.approx_inv:
+            def recip(x):
+                r = 1.0 / x
+                return r * (2.0 - x * r)
+            self.recip = recip
+
+    def _rows(self, g):
+        return g.repeat_interleave(self.group)
+
+    def _groups(self, x):
+        return x.view(self.G, self.group)
+
+    def step(self, Nk, Pk, bN, bP, bE, mp, a0, step_tol):
+        prm, tol, skip_tol = self.prm, self.tol, self.skip_tol
+        (F_N, F_P), (err_n, err_p) = residuals_and_errors(
+            Nk, Pk, bN, bP, bE, mp, a0)
+        ok0 = (err_n < skip_tol) & (err_p < skip_tol)
+        active = ~self._groups(ok0).all(1)   # groups that enter the loop
+        done = ok0 | ~self._rows(active)     # a skipping group is all done
+        its = torch.zeros_like(ok0, dtype=torch.int32)
+        ffull = ~self.cval
+        it = 0
+        while it < prm.max_iters and bool(active.any()):
+            act = self._rows(active)
+            self.execs += active.to(torch.int32)
+            do_full = ffull & active
+            if bool(do_full.any()):
+                _, (A, B, C) = residuals_and_jacobian(Nk, Pk, bN, bP, bE, mp, a0)
+                new = block_pcr_reduce(A, B, C, recip=self.recip)
+                self.cache = (new if self.cache is None else
+                              _select(self._rows(do_full), new, self.cache))
+                self.cval = self.cval | do_full
+                self.fulls += do_full.to(torch.int32)
+            dN, dP = block_pcr_apply(self.cache, (-F_N, -F_P))
+            upd = (~done).to(Nk.dtype)[:, None]
+            Nn = Nk + upd * (torch.maximum(Nk + dN, 0.05 * Nk) - Nk)
+            Pn = Pk + upd * (torch.maximum(Pk + dP, 0.05 * Pk) - Pk)
+            Nk = torch.where(act[:, None], Nn, Nk)
+            Pk = torch.where(act[:, None], Pn, Pk)
+            its = its + (act & ~done).to(torch.int32)
+            # State-settled acceptance: a full step gets the loose guard; a
+            # chord step the settle guard (0 in the strict profile).
+            guard = torch.where(self._rows(do_full), self.guard_full,
+                                self.guard_chord)
+            ok_step = ((dN.abs().amax(-1) <= step_tol * Nk.abs().amax(-1))
+                       & (dP.abs().amax(-1) <= step_tol * Pk.abs().amax(-1))
+                       & (err_n < guard) & (err_p < guard))
+            (F_N, F_P), (err_n2, err_p2) = residuals_and_errors(
+                Nk, Pk, bN, bP, bE, mp, a0)
+            ok_skip = (err_n2 < skip_tol) & (err_p2 < skip_tol)
+            done = done | (act & (ok_step | ok_skip))
+            # Stall: an active sample whose residual failed to contract by
+            # `stall` under this step -> full refresh next iteration.
+            bad = self._groups(~done & ((err_n2 > prm.stall * err_n)
+                                        | (err_p2 > prm.stall * err_p))).any(1)
+            ffull = torch.where(active, bad | (it + 1 >= prm.chord_budget), ffull)
+            err_n, err_p = err_n2, err_p2
+            it += 1
+            active = active & ~self._groups(done).all(1)
+        done = done | ((err_n < tol) & (err_p < tol))
+        Ek = update_e(Nk, Pk, bE, mp, a0)
+        return Nk, Pk, Ek, done, its
+
+
+def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
+                        prm: HorizonParams, group: int = 1) -> HorizonOut:
+    """Plain PyTorch version of :func:`horizon_chord`.
+
+    Args:
+      mat: (batch, 12) nondimensional parameters (already on the phase's dt).
+      n0/p0/e0: (batch, L) phase-start state.
+      obs: stride 1: (num_exp, T), column j the observation at step j+1;
+        stride S: (num_exp, C, S), the S fine points of each coarse step.
+      msk: optional per-step weights (num_exp, T | C); for stride S the
+        step's weight is the max over its fine points.
+      vmask: stride S with msk: per-fine-point weights (num_exp, C, S).
+      pl0: optional (batch,) external normalization anchor.
+      wtab: stride S: (3, S, 4) Lagrange table (models/twophase.py).
+      group: samples per shared chord decision (see module docstring).
+    """
+    batch, L = n0.shape
+    S = prm.stride
+    num_exp, T = obs.shape[0], obs.shape[1]
+    mp = MatParams.from_array(mat)
+    tol = _scalar(prm.tol, n0)
+    step_tol = _scalar(prm.step_tol, n0)
+    log_scale = _scalar(prm.log_scale, n0)
+    mv = log_floor(prm.min_val, n0.dtype)
+    bdf = torch.as_tensor(BDF_TABLE, dtype=n0.dtype, device=n0.device)
+    chord = _Chord(batch, group, n0.device, prm, tol)
+
+    nh, ph, eh = init_history(n0, p0, e0)
+    n0p0 = mp.n0 * mp.p0
+    pl00 = mp.rate * ((n0 * p0).sum(-1) - L * n0p0)
+    pl0_s = pl00 if pl0 is None else pl0
+
+    def logpl(x):
+        if prm.normalize:
+            return torch.log10(torch.clamp_min(x / pl0_s, mv))
+        return torch.log10(torch.clamp_min(x, mv)) + log_scale
+
+    acc_shape = (num_exp, batch) if S == 1 else (num_exp, batch, S)
+    sse = torch.zeros(acc_shape, dtype=n0.dtype, device=n0.device)
+    esum = torch.zeros_like(sse)
+    conv = torch.ones(batch, dtype=torch.bool, device=n0.device)
+    its = torch.zeros(batch, dtype=torch.int32, device=n0.device)
+    maxit = torch.zeros_like(its)
+    if S > 1:
+        lpw = [torch.zeros_like(pl00)] * 3 + [logpl(pl00)]
+
+    for t in range(T):
+        row = min(t, 4)
+        a0 = bdf[row, 0]
+        hist = [(t - m) % HISTORY for m in range(5)]
+        bN, bP, bE = (bdf[row, 1] * h[hist[0]] for h in (nh, ph, eh))
+        for m in range(1, 5):
+            w = bdf[row, m + 1]
+            bN = bN + w * nh[hist[m]]
+            bP = bP + w * ph[hist[m]]
+            bE = bE + w * eh[hist[m]]
+        Nk, Pk = nh[hist[0]], ph[hist[0]]
+        if prm.pred_order:
+            ramp = float(t > 0)
+            d1n = Nk - nh[hist[1]]
+            d1p = Pk - ph[hist[1]]
+            Nx = Nk + ramp * d1n
+            Px = Pk + ramp * d1p
+            if prm.pred_order == 2:
+                ramp2 = float(t > 1)
+                Nx = Nx + ramp2 * (d1n - (nh[hist[1]] - nh[hist[2]]))
+                Px = Px + ramp2 * (d1p - (ph[hist[1]] - ph[hist[2]]))
+            if prm.pred_order == 3:
+                Nm, Pm = nh[hist[1]], ph[hist[1]]
+                Nx = torch.where(Nm > 0, Nk * (Nk / torch.where(Nm > 0, Nm, 1.0)), Nx)
+                Px = torch.where(Pm > 0, Pk * (Pk / torch.where(Pm > 0, Pm, 1.0)), Px)
+            Nk = torch.where(Nx > 0, Nx, Nk)
+            Pk = torch.where(Px > 0, Px, Pk)
+        Nn, Pn, En, done, iters = chord.step(Nk, Pk, bN, bP, bE, mp, a0, step_tol)
+        new = (t + 1) % HISTORY
+        nh[new], ph[new], eh[new] = Nn, Pn, En
+        its = its + iters
+        maxit = torch.maximum(maxit, iters)
+
+        lp = logpl(mp.rate * ((Nn * Pn).sum(-1) - L * n0p0))
+        w_any = None
+        if S == 1:
+            for e in range(num_exp):
+                err = lp - obs[e, t]
+                if msk is not None:
+                    m = msk[e, t]
+                    w_any = m if w_any is None else torch.maximum(w_any, m)
+                    sse[e] = sse[e] + m * err * err
+                    esum[e] = esum[e] + m * err
+                else:
+                    sse[e] = sse[e] + err * err
+                    esum[e] = esum[e] + err
+        else:
+            lpw = lpw[1:] + [lp]
+            Wr = wtab[min(t, 2)]                                   # (S, 4)
+            lp_fine = (lpw[0][:, None] * Wr[None, :, 0]
+                       + lpw[1][:, None] * Wr[None, :, 1]
+                       + lpw[2][:, None] * Wr[None, :, 2]
+                       + lpw[3][:, None] * Wr[None, :, 3])          # (batch, S)
+            for e in range(num_exp):
+                err = lp_fine - obs[e, t][None, :]
+                if msk is not None:
+                    vm = vmask[e, t][None, :]
+                    m = msk[e, t]
+                    w_any = m if w_any is None else torch.maximum(w_any, m)
+                    sse[e] = sse[e] + vm * err * err
+                    esum[e] = esum[e] + vm * err
+                else:
+                    sse[e] = sse[e] + err * err
+                    esum[e] = esum[e] + err
+        if w_any is not None:
+            # Padding-only steps (zero weight in every experiment) cannot
+            # fail a sample.
+            done = done | ~(w_any > 0)
+        conv = conv & done
+
+    if S > 1:
+        sse, esum = sse.sum(-1), esum.sum(-1)
+    k = T % HISTORY
+    return HorizonOut(sse, esum, conv, its, maxit, nh[k], ph[k], eh[k],
+                      chord._rows(chord.fulls), chord._rows(chord.execs))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: build, load, launch
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA horizon kernel is built at "
+                       "first use and needs the CUDA toolkit")
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile csrc/horizon_kernel.cu with nvcc into a shared library with
+    a plain C interface under build/ (no PyTorch headers, no ninja).  The
+    file name carries the source hash, so a changed source rebuilds."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src).hexdigest()[:16]
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _BUILD_DIR / f"{tag}-{_LIB_NAME}"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+           "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      cached=False, ptxas=proc.stderr)
+    if verbose:
+        print(proc.stderr)
+    return out
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for name in ("trpl_horizon_chord_stride1_f32", "trpl_horizon_chord_stride1_f64",
+                     "trpl_horizon_chord_strides_f32", "trpl_horizon_chord_strides_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * 20 + [ci] * 12 + [cd] * 9 + [vp]
+            fn.restype = ci
+        lib.trpl_error_string.argtypes = [ci]
+        lib.trpl_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _check(name, x, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
+                  prm: HorizonParams) -> HorizonOut:
+    """One fixed-dt phase of chord Newton with the fused likelihood.
+
+    Arguments as :func:`horizon_chord_plain`.  On CUDA tensors this launches
+    the hand-written kernel (one thread block per sample, so the chord
+    decisions are per sample); on CPU tensors it runs the plain version
+    with ``group=1``, the same function.
+    """
+    if n0.device.type == "cpu":
+        return horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
+                                   prm, group=1)
+    if n0.device.type != "cuda":
+        raise ValueError(f"horizon_chord: unsupported device {n0.device}")
+    dtype, dev = n0.dtype, n0.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"horizon_chord: unsupported dtype {dtype}")
+    batch, L = n0.shape
+    if L & (L - 1) or not 32 <= L <= 1024:
+        raise ValueError(f"horizon_chord: L must be a power of two in "
+                         f"[32, 1024], got {L}")
+    S = prm.stride
+    num_exp, T = obs.shape[0], obs.shape[1]
+    _check("mat", mat, dtype, (batch, 12), dev)
+    for name, x in (("n0", n0), ("p0", p0), ("e0", e0)):
+        _check(name, x, dtype, (batch, L), dev)
+    _check("obs", obs, dtype, (num_exp, T) if S == 1 else (num_exp, T, S), dev)
+    if msk is not None:
+        _check("msk", msk, dtype, (num_exp, T), dev)
+    if S > 1:
+        _check("wtab", wtab, dtype, (3, S, 4), dev)
+        if S > L:
+            raise ValueError(f"horizon_chord: stride {S} exceeds L={L}")
+        if msk is not None:
+            _check("vmask", vmask, dtype, (num_exp, T, S), dev)
+    if pl0 is not None:
+        _check("pl0", pl0, dtype, (batch,), dev)
+    bdf = torch.as_tensor(BDF_TABLE, dtype=dtype, device=dev)
+
+    sse = torch.empty((num_exp, batch), dtype=dtype, device=dev)
+    esum = torch.empty_like(sse)
+    ints = [torch.empty(batch, dtype=torch.int32, device=dev) for _ in range(5)]
+    conv, its, maxit, fulls, execs = ints
+    n, p, e = (torch.empty_like(n0) for _ in range(3))
+    lib = _library()
+    mode = "stride_1" if S == 1 else "stride_s"
+    fn = getattr(lib, "trpl_horizon_chord_{}_{}".format(
+        "stride1" if S == 1 else "strides", "f32" if dtype == torch.float32 else "f64"))
+    rc = fn(_ptr(mat), _ptr(n0), _ptr(p0), _ptr(e0), _ptr(obs), _ptr(msk),
+            _ptr(vmask), _ptr(pl0), _ptr(wtab), _ptr(bdf),
+            _ptr(sse), _ptr(esum), _ptr(conv), _ptr(its), _ptr(maxit),
+            _ptr(n), _ptr(p), _ptr(e), _ptr(fulls), _ptr(execs),
+            batch, L, T, S, num_exp, int(msk is not None),
+            int(prm.normalize), int(pl0 is not None), int(prm.pred_order),
+            int(prm.max_iters), int(prm.chord_budget), int(prm.approx_inv),
+            float(prm.tol), float(prm.step_tol), float(prm.log_scale),
+            float(prm.min_val), float(prm.settle_guard),
+            float(prm.skip_accept_factor), float(prm.skip_tighten),
+            float(prm.stall), float(prm.step_tol_guard),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"horizon kernel launch failed: CUDA error {rc} "
+                           f"({lib.trpl_error_string(rc).decode()})")
+    launches[mode] += 1
+    return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs)
+
+
+# ---------------------------------------------------------------------------
+# Phase-level entries (the JAX package's solve_horizon_fused and
+# solve_coarse_phase_fused)
+# ---------------------------------------------------------------------------
+
+def _params(cfg: SolverConfig, obs: FusedObs, stride: int, log_scale: float):
+    settle_guard, skip_tighten, stall = _chord_knobs(cfg)
+    return HorizonParams(
+        stride=stride, tol=cfg.tol,
+        step_tol=0.0 if cfg.step_tol is None else float(cfg.step_tol),
+        log_scale=0.0 if obs.normalize else log_scale,
+        min_val=obs.min_val, max_iters=int(cfg.max_iters),
+        normalize=bool(obs.normalize), pred_order=PRED_ORDER[cfg.predictor],
+        settle_guard=settle_guard, skip_tighten=skip_tighten, stall=stall)
+
+
+def _result(out: HorizonOut, sse, esum) -> SolveResult:
+    return SolveResult(
+        pl=None, n=out.n, p=out.p, e=out.e, converged=out.conv,
+        max_newton_iters=out.maxit.max(), sse=sse, err_sum=esum,
+        sample_iters=out.its, full_solves=out.fulls, tile_body_iters=out.execs)
+
+
+def solve_horizon_fused(mat_nd, n_init, p_init, cfg: SolverConfig,
+                        obs: FusedObs, e_init=None, kernel=None) -> SolveResult:
+    """Fused full-horizon chord solve + likelihood over cfg.num_steps fine
+    steps; obs.values is (num_exp, T+1).  The kernel owns steps 1..T and
+    this function adds the t=0 observation term."""
+    kernel = horizon_chord if kernel is None else kernel
+    T = cfg.num_steps
+    values = obs.values
+    mask = obs.mask
+    obs_sc = values[:, 1:T + 1].contiguous()
+    msk = None if mask is None else mask[:, 1:T + 1].contiguous()
+    e0 = torch.zeros_like(n_init) if e_init is None else e_init
+    prm = _params(cfg, obs, 1, float(_scalar(obs.log_scale, n_init)))
+    out = kernel(mat_nd, n_init, p_init, e0, obs_sc, msk, None, None, None, prm)
+
+    mp = MatParams.from_array(mat_nd)
+    pl0 = pl_observable(n_init, p_init, mp)
+    e0t = _log_pl(pl0, obs, pl0) - values[:, 0:1]
+    if mask is not None:
+        m0 = mask[:, 0:1]
+        return _result(out, out.sse + m0 * e0t ** 2, out.esum + m0 * e0t)
+    return _result(out, out.sse + e0t ** 2, out.esum + e0t)
+
+
+def solve_coarse_phase_fused(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
+                             obs: FusedObs, pl0, t_off: int, n_fine: int,
+                             S: int, kernel=None) -> SolveResult:
+    """One coarse rung of the stride ladder in a single launch: BDF restarted
+    at step S*dt from the phase-start state, likelihood over the fine
+    observation points (t_off, t_off + n_fine] by cubic dense output.
+
+    ``mat_nd`` is on the FINE dt (rescaled here); ``pl0`` is the run-t=0
+    fine-dt PL (normalization anchor).  Returns this phase's terms only."""
+    from ..models.twophase import _lagrange_weight_table, rescale_dt
+
+    kernel = horizon_chord if kernel is None else kernel
+    if n_fine % S:
+        raise ValueError(f"phase length {n_fine} not divisible by S={S}")
+    C = n_fine // S
+    num_exp = obs.values.shape[0]
+    sl = slice(t_off + 1, t_off + n_fine + 1)
+    obs_sc = obs.values[:, sl].reshape(num_exp, C, S).contiguous()
+    vmask = msk = None
+    if obs.mask is not None:
+        vmask = obs.mask[:, sl].reshape(num_exp, C, S).contiguous()
+        msk = vmask.amax(-1).contiguous()
+    # Nondimensional PL scales with dt: the log offset and the anchor shift
+    # to coarse units, in the compute dtype.
+    log_scale = float(_scalar(obs.log_scale, n_init) - _scalar(np.log10(S), n_init))
+    pl0_in = (pl0 * S).contiguous() if obs.normalize else None
+    wtab = torch.as_tensor(_lagrange_weight_table(S), dtype=n_init.dtype,
+                           device=n_init.device)
+    out = kernel(rescale_dt(mat_nd, S).contiguous(), n_init, p_init, e_init,
+                 obs_sc, msk, vmask, pl0_in, wtab, _params(cfg, obs, S, log_scale))
+    return _result(out, out.sse, out.esum)
+
+
+def from_jax_inputs(mat_nd, n0, p0, e0, obs_values, log_scale, min_val,
+                    normalize=False, mask=None, cfg=None, schedule=None,
+                    dtype=torch.float64, device="cpu"):
+    """Carry the JAX package's inputs, given as numpy (or anything
+    ``np.asarray`` takes), over to this port.
+
+    ``cfg`` is the JAX ``SolverConfig`` (or a dict of its fields); ``schedule``
+    the ladder ((stride, num_fine_steps), ...).  Returns
+    ``(mat_nd, n0, p0, e0, obs, cfg, schedule)`` as this port's tensors,
+    ``FusedObs`` and ``SolverConfig``.
+    """
+    def t(a):
+        return torch.tensor(np.array(a), dtype=dtype, device=device)
+
+    obs = FusedObs(values=t(obs_values), log_scale=float(np.asarray(log_scale)),
+                   min_val=float(min_val), normalize=bool(normalize),
+                   mask=None if mask is None else t(mask))
+    port_cfg = None
+    if cfg is not None:
+        fields = cfg._asdict() if hasattr(cfg, "_asdict") else dict(cfg)
+        port_cfg = SolverConfig(**{k: fields[k] for k in SolverConfig._fields
+                                   if k in fields})
+    if schedule is not None:
+        schedule = tuple((int(s), int(n)) for s, n in schedule)
+    return t(mat_nd), t(n0), t(p0), t(e0), obs, port_cfg, schedule

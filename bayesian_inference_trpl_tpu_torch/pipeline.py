@@ -1,0 +1,286 @@
+"""End-to-end Bayesian inference pipeline.
+
+The counterpart of the reference driver chain
+``parallel_bayes_gpu.py -> bayeslib.bayes -> bayeslib.simulate``: load
+observations and excitations, draw the sample grid, evaluate the
+log-likelihood of every sample against every experiment and excitation
+curve on the device, and export BAYRAN (X, P) arrays.  The likelihood is
+fused into the solver whenever observation times sit on the simulation
+grid; the branches the JAX package has beyond that raise
+NotImplementedError naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import physics
+from .config import InferenceConfig
+from .models.driver import SimParams
+from .parallel.checkpoint import CheckpointManager, CheckpointState
+from .parallel.runner import Runner
+from .utils import io as bio
+from .utils import sampling, validate
+
+
+def is_uniform_prefix(times, dt: float, threshold: float = 1e-9) -> bool:
+    """True when ``times`` is exactly the uniform grid 0, dt, 2 dt, ...
+
+    Observation curves on a dt-grid prefix of the simulation horizon can be
+    scored by the fused likelihood on a shortened simulation; on matching
+    grids the reference's linear interpolation returns the node values, so
+    the shortened run is exactly equivalent (bayeslib.py:115, 182-191).
+    """
+    times = np.asarray(times)
+    if len(times) < 2 or times[0] != 0.0:
+        return False
+    expected = dt * np.arange(len(times))
+    return bool(np.max(np.abs(times - expected)) <= threshold * max(dt, 1.0))
+
+
+def _with_horizon(sim: SimParams, T: int) -> SimParams:
+    """``sim`` cut (or padded) to T steps of the same dt."""
+    return SimParams(length=sim.length, time=T * sim.dt, L=sim.L, T=T,
+                     pl_stride=1, tol_exp=sim.tol_exp, max_iters=sim.max_iters,
+                     method=sim.method, predictor=sim.predictor,
+                     step_tol=sim.step_tol,
+                     fast_fine_steps=sim.fast_fine_steps,
+                     fast_coarse_stride=sim.fast_coarse_stride,
+                     fast_max_stride=sim.fast_max_stride,
+                     fast_steps_per_phase=sim.fast_steps_per_phase)
+
+
+def plan_fused_horizon(cfg: InferenceConfig, sim: SimParams, e_data, ic_num: int):
+    """Decide the fused strategy for one curve.
+
+    Returns (sim', obs_values (num_exp, n), obs_mask or None) when every
+    experiment's curve for this ic is either the full simulation grid or a
+    uniform dt-prefix of it; returns None otherwise (off-grid times).
+    """
+    num_exp = len(e_data)
+    lengths = []
+    for e in range(num_exp):
+        times = np.asarray(e_data[e][0][ic_num])
+        if len(times) > sim.T + 1 or not is_uniform_prefix(times, sim.dt):
+            return None
+        lengths.append(len(times))
+    T_c = min(max(lengths) - 1, sim.T)
+    sim_c = _with_horizon(sim, T_c)
+    n = T_c + 1
+    values = np.zeros((num_exp, n))
+    weighted = cfg.sim_flags.use_uncertainty
+    need_mask = weighted or any(l != n for l in lengths)
+    mask = np.zeros((num_exp, n)) if need_mask else None
+    for e in range(num_exp):
+        v = np.asarray(e_data[e][1][ic_num])
+        values[e, :len(v)] = v
+        if mask is not None:
+            mask[e, :len(v)] = (_sigma_weights(e_data[e][2][ic_num])
+                                if weighted else 1.0)
+    return sim_c, values, mask
+
+
+def _sigma_weights(sigma):
+    """Per-point weights 1/sigma^2 for the sigma-weighted SSE
+    (sim_flags.use_uncertainty).  NaN or ~zero sigmas get weight 1 (the
+    unweighted SSE point by point); sigma=inf gets weight 0."""
+    s = np.asarray(sigma, dtype=float)
+    w = np.ones_like(s)
+    good = s > 1e-30          # False for NaN and for ~zero sigmas
+    with np.errstate(divide="ignore"):
+        w[good] = 1.0 / s[good] ** 2
+    return w
+
+
+def sim_params_for_curve(cfg: InferenceConfig, ic_num: int, num_curves: int) -> SimParams:
+    g = cfg.grid
+    return SimParams(length=g.thickness_for_curve(ic_num, num_curves),
+                     time=g.time, L=g.num_nodes, T=g.num_steps,
+                     pl_stride=g.pl_stride, tol_exp=g.tol_exp,
+                     max_iters=g.max_iters, method=g.method,
+                     predictor=g.predictor, step_tol=g.step_tol,
+                     fast_fine_steps=g.fast_fine_steps,
+                     fast_coarse_stride=g.fast_coarse_stride,
+                     fast_max_stride=g.fast_max_stride,
+                     fast_steps_per_phase=g.fast_steps_per_phase)
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    """``device.dtype``: float64 | float32 | default (float32)."""
+    return torch.float64 if name == "float64" else torch.float32
+
+
+def bucket_horizons(plans, logger=None):
+    """Pad every fused curve plan to the run's longest horizon with
+    zero-weight masks, so that all curves share one set of kernel shapes.
+    The padded steps carry mask 0 and contribute nothing to the
+    likelihood."""
+    fused = [p for p in plans if p is not None]
+    if len(fused) < 2:
+        return plans
+    T_shared = max(p[0].T for p in fused)
+    out = []
+    for p in plans:
+        if p is None:
+            out.append(None)
+            continue
+        sim_c, values, mask = p
+        if sim_c.T == T_shared and mask is not None:
+            out.append(p)
+            continue
+        n_old = values.shape[1]
+        n_new = T_shared + 1
+        v = np.zeros((values.shape[0], n_new))
+        v[:, :n_old] = values
+        m = np.zeros((values.shape[0], n_new))
+        m[:, :n_old] = 1.0 if mask is None else mask
+        if logger and sim_c.T != T_shared:
+            logger.info("Bucketing curve horizon %d -> %d steps (masked)",
+                        sim_c.T, T_shared)
+        out.append((_with_horizon(sim_c, T_shared), v, m))
+    return out
+
+
+def _check_supported(cfg: InferenceConfig):
+    """Raise on the branches of the JAX pipeline this port does not carry
+    yet, naming the ROADMAP item of each."""
+    if cfg.resume:
+        raise NotImplementedError("checkpoint resume is not ported yet: ROADMAP A8")
+    if cfg.grid.adaptive_fine_tau:
+        raise NotImplementedError(
+            "adaptive tau routing (grid.adaptive_fine_tau) is not ported yet: "
+            "ROADMAP A9")
+    if cfg.device.n_devices not in (None, 1):
+        raise NotImplementedError("more than one device is not ported yet: "
+                                  "ROADMAP A15")
+    if cfg.device.profile_dir:
+        raise NotImplementedError("device.profile_dir is not ported yet: "
+                                  "ROADMAP A17")
+
+
+def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
+             logger=None, ckpt: Optional[CheckpointManager] = None):
+    """Evaluate likelihoods for all curves/experiments into P (in place).
+
+    Mirrors the reference ``simulate`` control flow (bayeslib.py:83-205).
+    Returns the (n,) convergence flags over all curves.
+    """
+    num_curves = len(init_params)
+    num_exp = len(e_data)
+    dtype = resolve_dtype(cfg.device.dtype)
+    conv_all = np.ones(len(X), dtype=bool)
+
+    plans = [plan_fused_horizon(cfg, sim_params_for_curve(cfg, ic, num_curves),
+                                e_data, ic) for ic in range(num_curves)]
+    if cfg.grid.bucket_horizons:
+        plans = bucket_horizons(plans, logger)
+
+    for ic_num in range(num_curves):
+        sim = sim_params_for_curve(cfg, ic_num, num_curves)
+        if logger:
+            logger.info("Curve #%d: thickness=%s, %d timesteps to %s ns",
+                        ic_num, sim.length, sim.T, sim.time)
+        plan = plans[ic_num]
+        if plan is None:
+            if cfg.grid.offgrid_fused:
+                raise NotImplementedError(
+                    "off-grid observation times (the fused slot-table path) "
+                    "are not ported yet: ROADMAP A10")
+            raise NotImplementedError(
+                "off-grid observation times (the interpolation fallback) "
+                "are not ported yet: ROADMAP A12")
+
+        def _ckpt_chunk(ci, _ll, _ic=ic_num):
+            if ckpt is not None:
+                state = CheckpointState(
+                    num_samples=len(X), num_exp=num_exp, num_curves=num_curves,
+                    chunk=runner.chunk, curve_index=_ic, chunk_index=ci + 1)
+                ckpt.save_progress(state, P)
+
+        def _ckpt_retry():
+            # Re-checkpoint after the retry pass repairs failed samples.
+            _ckpt_chunk(-(-len(X) // runner.chunk) - 1, None)
+
+        if ckpt is not None:
+            ckpt.save_curve_start(P)
+        sim_c, obs_vals, obs_mask = plan
+        if logger:
+            logger.info("Observation times on simulation grid: fused likelihood "
+                        "(horizon %d steps%s)", sim_c.T,
+                        ", masked" if obs_mask is not None else "")
+        prog = ((lambda ci, nc: logger.info(
+            "Curve #%d: chunk %d of %d", ic_num, ci, nc)) if logger else None)
+        _, conv = runner.run_curve(
+            X, sim_c, init_params[ic_num], obs_vals,
+            normalize=cfg.sim_flags.self_normalize, dtype=dtype,
+            progress=prog, chunk_done=_ckpt_chunk, out=P, obs_mask=obs_mask,
+            retry_done=_ckpt_retry)
+        conv_all &= conv
+    P[:, ~conv_all] = np.nan
+    return conv_all
+
+
+def bayes(cfg: InferenceConfig, logger: Optional[logging.Logger] = None,
+          device="cuda"):
+    """Top-level driver (reference: bayeslib.bayes, bayeslib.py:207-252).
+
+    Runs on ``device`` (``cuda`` unless the caller passes ``cpu``).
+    Returns (P, X, info): per-experiment log-likelihoods (num_exp, n), the
+    sample matrix in user units (n, 13), and run diagnostics.
+    """
+    t_start = time.perf_counter()
+    _check_supported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bayes: CUDA requested but no CUDA device is "
+                           "available (pass device='cpu' to run on the CPU)")
+    rng = np.random.default_rng(cfg.sim_flags.seed)
+
+    init_params = bio.get_initpoints(cfg.paths.init_file, cfg.ic_flags.as_dict())
+    e_data = bio.get_data(cfg.paths.observation_files, cfg.ic_flags.as_dict(),
+                          cfg.sim_flags.as_dict(), logger=logger, rng=rng)
+
+    num_exp = len(e_data)
+    for exp in e_data:
+        if len(init_params) != len(exp[0]):
+            raise ValueError("Num. ICs mismatch num. datasets")
+    validate.validate_ic(init_params, cfg.grid.num_nodes)
+    validate.validate_ic_flags(cfg.ic_flags)
+    validate.validate_params(physics.NUM_PARAMS, physics.UNIT_CONVERSIONS,
+                             cfg.params.do_log, cfg.params.min_x, cfg.params.max_x)
+    validate.validate_solver(cfg.grid.method, cfg.grid.predictor)
+
+    min_x, max_x = cfg.params.bounds_converted()
+    _, P, X = sampling.make_grid(
+        num_exp, min_x, max_x, cfg.params.do_log, cfg.sim_flags.as_dict(),
+        rng=np.random.RandomState(cfg.sim_flags.seed))
+    if logger:
+        logger.info("Initialized %d random samples", len(X))
+
+    runner = Runner(chunk=cfg.device.chunk_per_device,
+                    retries=cfg.device.retry_nonconverged, device=device)
+    ckpt = None
+    if cfg.checkpoint and cfg.paths.out_dirs:
+        ckpt = CheckpointManager(cfg.paths.out_dirs[0])
+        ckpt.init(X, num_exp, len(init_params), runner.chunk)
+
+    simulate(cfg, e_data, init_params, X, P, runner, logger=logger, ckpt=ckpt)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+    X_user = X / physics.UNIT_CONVERSIONS
+    for i, out_dir in enumerate(cfg.paths.out_dirs):
+        bio.export(out_dir, P[i], X_user, logger=logger)
+
+    info = dict(runtime=time.perf_counter() - t_start, **runner.timers.as_dict(),
+                num_samples=len(X), num_devices=1, device=str(device))
+    if logger:
+        logger.info("Total tEvol time: %.2fs; err_sq: %.2fs; misc: %.2fs",
+                    runner.timers.solver_time, runner.timers.err_sq_time,
+                    runner.timers.misc_time)
+        logger.info("Bayesim took %.2fs", info["runtime"])
+    return P, X_user, info

@@ -1,0 +1,67 @@
+"""Command-line inference entry point.
+
+Usage:
+    python -m bayesian_inference_trpl_tpu_torch.run config.toml \
+        [--num-points N] [--log-dir Logs] [--device cuda|cpu]
+
+The configuration format is the JAX package's (examples/*.toml).  The run
+goes on the GPU unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from datetime import datetime
+
+from .config import dump_config, load_config
+from .pipeline import bayes
+
+
+def start_logging(log_dir: str = "Logs"):
+    """Timestamped file + stderr logging (reference:
+    parallel_bayes_gpu.py:37-57)."""
+    os.makedirs(log_dir, exist_ok=True)
+    tstamp = str(datetime.now()).replace(":", "-").replace(" ", "_")
+    logger = logging.getLogger("bayes-trpl-torch")
+    logger.setLevel(logging.DEBUG)
+    fmt = logging.Formatter(fmt="%(asctime)s %(levelname)s: %(message)s",
+                            datefmt="%Y-%m-%d %H:%M:%S")
+    fh = logging.FileHandler(os.path.join(log_dir, f"{tstamp}.log"))
+    fh.setFormatter(fmt)
+    sh = logging.StreamHandler()
+    sh.setLevel(logging.INFO)
+    sh.setFormatter(fmt)
+    logger.addHandler(fh)
+    logger.addHandler(sh)
+    return logger
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("config", help="TOML inference config")
+    ap.add_argument("--num-points", type=int, default=None)
+    ap.add_argument("--log-dir", default="Logs")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda)")
+    ap.add_argument("--dump-config", action="store_true",
+                    help="print the resolved config and exit")
+    args = ap.parse_args(argv)
+
+    cfg = load_config(args.config)
+    if args.num_points is not None:
+        cfg.sim_flags.num_points = args.num_points
+    if args.dump_config:
+        print(dump_config(cfg))
+        return 0
+
+    logger = start_logging(args.log_dir)
+    logger.info("Config: %s", args.config)
+    P, X, info = bayes(cfg, logger=logger, device=args.device)
+    logger.info("Done: %s", json.dumps(info))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,57 @@
+"""Startup validation of inputs (reference: bayes_validate.py:10-55); a copy
+of the JAX package's checks, with the solver names the port supports."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def validate_ic(ics, L: int):
+    for ic in ics:
+        if len(ic) != L:
+            raise ValueError(f"IC length {len(ic)} != declared L {L}")
+
+
+def validate_ic_flags(ic_flags):
+    tc = ic_flags.time_cutoff
+    if tc is not None:
+        if not isinstance(tc, (int, float)) or tc <= 0:
+            raise ValueError("invalid time cutoff")
+    sel = ic_flags.select_obs_sets
+    if sel is not None and not isinstance(sel, list):
+        raise ValueError("invalid observation set selection")
+    nl = ic_flags.noise_level
+    if nl is not None and not isinstance(nl, (int, float)):
+        raise ValueError("invalid noise level")
+
+
+def validate_params(num_params: int, unit_conversions, do_log, min_x, max_x):
+    if len(unit_conversions) != num_params:
+        raise ValueError("unit conversion array is missing entries")
+    if len(do_log) != num_params:
+        raise ValueError("do_log mask is missing values")
+    if len(min_x) != num_params or len(max_x) != num_params:
+        raise ValueError("missing min/max param values")
+    if not np.all(np.asarray(min_x) <= np.asarray(max_x)):
+        raise ValueError("min params larger than max params")
+
+
+SOLVER_METHODS = ("coupled_newton", "fused_horizon_chord")
+# Methods of the JAX package that the port does not carry yet, with the
+# ROADMAP item that brings each.
+UNPORTED_METHODS = {"gauss_seidel": "A13", "fused_horizon": "B4",
+                    "coupled_newton_pallas": "B5"}
+PREDICTORS = ("previous", "linear", "quadratic", "geometric")
+
+
+def validate_solver(method: str, predictor: str):
+    """Fail fast on solver knobs before any sampling or IO work."""
+    if method in UNPORTED_METHODS:
+        raise NotImplementedError(
+            f"solver method {method!r} is not ported yet: ROADMAP "
+            f"{UNPORTED_METHODS[method]}")
+    if method not in SOLVER_METHODS:
+        raise ValueError(f"unknown solver method {method!r}; "
+                         f"choose one of {SOLVER_METHODS}")
+    if predictor not in PREDICTORS:
+        raise ValueError(f"unknown Newton predictor {predictor!r}; "
+                         f"choose one of {PREDICTORS}")

@@ -1,0 +1,91 @@
+"""The CUDA horizon kernel against its plain PyTorch version on the card.
+
+Needs an NVIDIA GPU and skips without one.  The file imports neither JAX
+nor the JAX package, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from bayesian_inference_trpl_tpu_torch import physics
+from bayesian_inference_trpl_tpu_torch.models.driver import (
+    SimParams, initial_excess_density, pl_log_scale)
+from bayesian_inference_trpl_tpu_torch.models.solver import FusedObs, SolverConfig
+from bayesian_inference_trpl_tpu_torch.models.twophase import solve_multiphase
+from bayesian_inference_trpl_tpu_torch.ops import horizon_kernel as hk
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the horizon kernel runs only on the card")
+    return torch.device("cuda")
+
+
+def _problem(device, dtype, B=8, T=36 + 2 * 64, seed=0):
+    rng = np.random.default_rng(seed)
+    lo = np.array([1e8, 1e14, 1.0, 1.0, 1e-11, 1e0, 1e0, 1e-30, 1e-30, 20.0, 20.0, 1e-1])
+    hi = np.array([1e8, 1e16, 50.0, 50.0, 1e-9, 1e2, 1e2, 1e-28, 1e-28, 1000.0, 2000.0, 1e1])
+    log = np.array([0, 1, 0, 0, 1, 1, 1, 1, 1, 0, 0, 1], dtype=bool)
+    u = rng.uniform(size=(B, 12))
+    x = np.where(log, 10 ** (np.log10(lo) + u * (np.log10(hi) - np.log10(lo))),
+                 lo + u * (hi - lo)) * physics.UNIT_CONVERSIONS[:12]
+    sim = SimParams(length=311.0, time=2000.0 * T / 80000, L=128, T=T)
+    mat = torch.as_tensor(physics.nondimensionalize(x, sim.dx, sim.dt),
+                          dtype=dtype, device=device)
+    dn = initial_excess_density(sim, (1e18 / 1e7 ** 3, 100.0), "exp",
+                                dtype=dtype, device=device)
+    n0 = (mat[:, 0:1] + dn[None]).contiguous()
+    p0 = (mat[:, 1:2] + dn[None]).contiguous()
+    mask = torch.ones((2, T + 1), dtype=dtype, device=device)
+    mask[1, -20:] = 0.0
+    obs = FusedObs(values=torch.as_tensor(rng.uniform(-4, -2, (2, T + 1)),
+                                          dtype=dtype, device=device),
+                   log_scale=pl_log_scale(sim), min_val=1e-300, mask=mask)
+    cfg = SolverConfig(num_steps=T, tol=1e-8 if dtype == torch.float64 else 1e-4,
+                       max_iters=8, step_tol=1e-6, method="fused_horizon_chord",
+                       predictor="quadratic")
+    return mat, n0, p0, torch.zeros_like(n0), obs, cfg
+
+
+def test_kernel_matches_plain_both_modes(cuda_device):
+    """Each phase of a masked ladder (stride 1, 8, 16), float64: conv, its,
+    fulls and execs equal; sse and esum within 1e-9 relative."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, torch.float64)
+    calls = []
+
+    def rec(*args):
+        calls.append((args, hk.horizon_chord_plain(*args, group=1)))
+        return calls[-1][1]
+    solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 64), (16, 64)),
+                     kernel=rec)
+    before = dict(hk.launches)
+    for args, ref in calls:
+        out = hk.horizon_chord(*args)
+        torch.cuda.synchronize()
+        for name in ("conv", "its", "maxit", "fulls", "execs"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        torch.testing.assert_close(out.sse, ref.sse, rtol=1e-9, atol=0.0)
+        torch.testing.assert_close(out.esum, ref.esum, rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(out.n, ref.n, rtol=1e-9, atol=0.0)
+    assert hk.launches["stride_1"] - before["stride_1"] == 1
+    assert hk.launches["stride_s"] - before["stride_s"] == 2
+
+
+def test_wrapper_rejects_bad_inputs(cuda_device):
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, torch.float64, B=2, T=8)
+    prm = hk._params(cfg, obs, 1, obs.log_scale)
+    vals = obs.values[:, 1:].contiguous()
+    with pytest.raises(ValueError, match="mat"):
+        hk.horizon_chord(mat.float(), n0, p0, e0, vals, None, None, None, None, prm)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.horizon_chord(mat, n0.t().contiguous().t(), p0, e0, vals, None, None,
+                         None, None, prm)
+    with pytest.raises(ValueError, match="obs"):
+        hk.horizon_chord(mat, n0, p0, e0, vals[:, :-1].contiguous().t(), None,
+                         None, None, None, prm)
