@@ -56,8 +56,9 @@ class GridConfig:
     adaptive_fine_steps: int = 512
     adaptive_max_stride: int = 32
     # Score off-grid (e.g. log-spaced) observation times with dense-output
-    # slot tables.  The port has neither off-grid path yet and raises on
-    # off-grid observations (ROADMAP A10, A12).
+    # slot tables (models/offgrid.py).  False selects the interpolation
+    # fallback, which the port does not carry yet and raises on (ROADMAP
+    # A12).
     offgrid_fused: bool = True
 
     def thickness_for_curve(self, ic_num: int, num_curves: int) -> float:
@@ -127,9 +128,10 @@ class DeviceConfig:
     # Device trace directory; None = off.  Not supported by the port yet:
     # a set value raises.
     profile_dir: Optional[str] = None
-    # Retry passes over each curve's non-converged samples (failure-only
-    # batches; see parallel/runner.Runner._retry_nonconverged).  Cheap when
-    # failures are few; 0 = reference-equivalent single attempt.
+    # Retry passes of the JAX package over each curve's non-converged
+    # samples (failure-only batches).  Kept so that its TOML files load; the
+    # port ignores it: its chord decisions are per sample (ROADMAP C4), so
+    # a failure-only batch repeats each failure bit for bit (C5).
     retry_nonconverged: int = 1
 
 

@@ -4,10 +4,15 @@
 //
 // Replaces: horizon_kernel._kernel of the JAX package
 // (bayesian_inference_trpl_tpu/ops/pallas/horizon_kernel.py:447-746,
-// launched by _call at :761-902), in its two chord modes on the main path:
-// stride 1 (solve_horizon_fused, the fine phase) and stride S
-// (solve_coarse_phase_fused, one rung of the ladder, with cubic log-space
-// dense output at the S fine observation points of each coarse step).
+// launched by _call at :761-902), in its three chord modes: stride 1
+// (solve_horizon_fused, the fine phase), stride S (solve_coarse_phase_fused,
+// one rung of the ladder, with cubic log-space dense output at the S fine
+// observation points of each coarse step) and off-grid, offgrid_k = K
+// (solve_phase_offgrid_fused, :1195-1310: K observation slots per step
+// scored from per-slot Lagrange weights over the same log-PL window, and a
+// liveness row that forgives a Newton failure only after the last
+// observation).  The three modes share the step loop; only the likelihood
+// at the end of each step differs.
 //
 // Design: one thread block per sample and one thread per spatial cell
 // (blockDim.x == L), the original CUDA design of the reference
@@ -24,8 +29,9 @@
 //
 // What bounds it on this card: FP32 (FP64) issue rate and __syncthreads
 // latency, not memory.  Device-memory traffic is a few bytes per
-// sample-step (one observation value per experiment); every state array
-// stays in shared memory from the first step to the last.  Each Newton
+// sample-step (one observation value per experiment, or 6 K values per
+// experiment off-grid, which stay in L2); every state array stays in
+// shared memory from the first step to the last.  Each Newton
 // iteration is a chain of short data-parallel phases over 128 cells
 // separated by block barriers (neighbour exchange, 6 PCR sweeps, block
 // reductions), so latency between barriers dominates at this occupancy.
@@ -105,17 +111,18 @@ template <typename T> struct Args {
   int *conv, *its, *maxit;
   T *n_out, *p_out, *e_out;
   int *fulls, *execs;
-  int batch, L, T_steps, stride, num_exp;
+  int batch, L, T_steps, stride, offgrid_k, num_exp;
   int has_mask, normalize, ext_pl0, pred_order, max_iters, chord_budget, approx_inv;
   double tol, step_tol, log_scale, min_val, settle_guard, skip_accept_factor,
       skip_tighten, stall, step_tol_guard;
 };
 
-// Shared-memory layout, in elements of T.
+// Shared-memory layout, in elements of T.  ``slots`` likelihood
+// accumulators per experiment: 1 (stride 1), S (stride S) or K (off-grid).
 struct Layout {
   int nh, ph, eh, kc1, kc2, fin, sA, sB, sC, xN, xP, jn, jp, ed, r1, r2, red,
       bdf, acc, total;
-  __host__ __device__ Layout(int L, int num_exp, int S) {
+  __host__ __device__ Layout(int L, int num_exp, int slots) {
     int ns = 0;
     for (int rf = 1; L > 2 * rf; rf *= 2) ns++;
     int nw = L / 32;
@@ -138,7 +145,7 @@ struct Layout {
     r2 = o; o += L;
     red = o; o += 8 * nw;   // two buffers of 4 partials per warp
     bdf = o; o += 32;
-    acc = o; o += 2 * num_exp * S;
+    acc = o; o += 2 * num_exp * slots;
     total = o;
   }
 };
@@ -400,16 +407,25 @@ __device__ void apply(Block<T>& bk, T FN, T FP, T& dN, T& dP) {
   dP = r2[i];
 }
 
-// COARSE: stride S > 1 (a coarse rung with dense output); else stride 1.
-template <typename T, bool COARSE>
+// The likelihood at the end of each step: at observation point t+1
+// (STRIDE1), at the S fine points of coarse step t by dense output
+// (STRIDES), or at the K observation slots of step t (OFFGRID).
+enum Mode { STRIDE1, STRIDES, OFFGRID };
+
+template <int MODE> __host__ __device__ __forceinline__ int slots_of(int stride, int k) {
+  return MODE == OFFGRID ? k : MODE == STRIDES ? stride : 1;
+}
+
+template <typename T, int MODE>
 __global__ void __launch_bounds__(1024) horizon_chord_kernel(const Args<T> a) {
   extern __shared__ unsigned char smem_raw[];
-  Block<T> bk{reinterpret_cast<T*>(smem_raw), Layout(a.L, a.num_exp, a.stride),
+  const int S = slots_of<MODE>(a.stride, a.offgrid_k);   // accumulators per experiment
+  Block<T> bk{reinterpret_cast<T*>(smem_raw), Layout(a.L, a.num_exp, S),
               (int)threadIdx.x, a.L, 0};
   T* sm = bk.sm;
   const Layout& ly = bk.lay;
   const int b = blockIdx.x, i = bk.i, L = bk.L;
-  const int S = a.stride, NE = a.num_exp, TS = a.T_steps;
+  const int NE = a.num_exp, TS = a.T_steps;
   const bool approx = a.approx_inv != 0;
 
   const T* mrow = a.mat + (size_t)b * 12;
@@ -439,7 +455,7 @@ __global__ void __launch_bounds__(1024) horizon_chord_kernel(const Args<T> a) {
   for (int k = i; k < 2 * NE * S; k += L) acc_sse[k] = T(0);
 
   // PL at the phase start (normalization anchor unless given, and the
-  // dense-output window's newest node).
+  // dense-output window's newest node; on the phase's rescaled rate).
   const T n0p0 = mp.n0 * mp.p0;
   T v4[4] = {n_init * p_init, T(0), T(0), T(0)};
   block_reduce4(v4, sm + ly.red, bk.parity, false);
@@ -449,7 +465,7 @@ __global__ void __launch_bounds__(1024) horizon_chord_kernel(const Args<T> a) {
     if (a.normalize) return log10_of(nmax(x / pl0s, minv));
     return log10_of(nmax(x, minv)) + log_scale;
   };
-  T lpw0 = T(0), lpw1 = T(0), lpw2 = T(0), lpw3 = COARSE ? logpl(pl00) : T(0);
+  T lpw0 = T(0), lpw1 = T(0), lpw2 = T(0), lpw3 = MODE != STRIDE1 ? logpl(pl00) : T(0);
 
   bool conv = true, cval = false;
   int its = 0, maxit = 0, fulls = 0, execs = 0;
@@ -545,13 +561,12 @@ __global__ void __launch_bounds__(1024) horizon_chord_kernel(const Args<T> a) {
     its += step_its;
     maxit = step_its > maxit ? step_its : maxit;
 
-    // ---- Fused likelihood at observation point t+1 (stride 1) or at the
-    // S fine points of coarse interval t (stride S).
+    // ---- Fused likelihood (see Mode).
     T p4[4] = {N * P, T(0), T(0), T(0)};
     block_reduce4(p4, sm + ly.red, bk.parity, false);
     const T lp = logpl(mp.rate * (p4[0] - T(L) * n0p0));
     T w_any = T(0);
-    if (!COARSE) {
+    if (MODE == STRIDE1) {
       for (int e = i; e < NE; e += L) {
         const T err = lp - a.obs[(size_t)e * TS + t];
         if (a.has_mask) {
@@ -563,6 +578,28 @@ __global__ void __launch_bounds__(1024) horizon_chord_kernel(const Args<T> a) {
           acc_esum[e] = acc_esum[e] + err;
         }
       }
+    } else if (MODE == OFFGRID) {
+      // Slot k of experiment e: its 4 window weights lie K apart in the
+      // (E, T, 4K) table; values and weights are (E, T, K).  Thread k owns
+      // slot k's sums, so no barrier is needed until the final reduction.
+      lpw0 = lpw1;
+      lpw1 = lpw2;
+      lpw2 = lpw3;
+      lpw3 = lp;
+      for (int e = 0; e < NE; e++) {
+        for (int k = i; k < S; k += L) {
+          const size_t o = ((size_t)e * TS + t) * S + k;
+          const T* W = a.wtab + ((size_t)e * TS + t) * 4 * S + k;
+          const T lpa = lpw0 * W[0] + lpw1 * W[S] + lpw2 * W[2 * S] + lpw3 * W[3 * S];
+          const T err = lpa - a.obs[o];
+          const T wg = a.vmask[o];
+          acc_sse[e * S + k] = acc_sse[e * S + k] + wg * err * err;
+          acc_esum[e * S + k] = acc_esum[e * S + k] + wg * err;
+        }
+      }
+      // Liveness: only the steps after the run's last observation forgive
+      // a Newton failure (an unobserved interior step feeds later points).
+      done = done || !(a.msk[t] > T(0));
     } else {
       lpw0 = lpw1;
       lpw1 = lpw2;
@@ -585,7 +622,7 @@ __global__ void __launch_bounds__(1024) horizon_chord_kernel(const Args<T> a) {
         }
       }
     }
-    if (a.has_mask) {
+    if (MODE != OFFGRID && a.has_mask) {
       // Padding-only steps (zero weight in every experiment) cannot fail
       // a sample.
       w_any = a.msk[t];
@@ -617,26 +654,27 @@ __global__ void __launch_bounds__(1024) horizon_chord_kernel(const Args<T> a) {
   }
 }
 
-template <typename T, bool COARSE>
+template <typename T, int MODE>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  if (COARSE != (a.stride > 1)) return (int)cudaErrorInvalidValue;
+  const int mode = a.offgrid_k > 0 ? OFFGRID : a.stride > 1 ? STRIDES : STRIDE1;
+  if (mode != MODE || (MODE == OFFGRID && a.stride != 1)) return (int)cudaErrorInvalidValue;
   if (a.batch == 0 || a.T_steps == 0) return 0;
-  const Layout ly(a.L, a.num_exp, a.stride);
+  const Layout ly(a.L, a.num_exp, slots_of<MODE>(a.stride, a.offgrid_k));
   const size_t bytes = (size_t)ly.total * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      horizon_chord_kernel<T, COARSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      horizon_chord_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  horizon_chord_kernel<T, COARSE><<<a.batch, a.L, bytes, stream>>>(a);
+  horizon_chord_kernel<T, MODE><<<a.batch, a.L, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COARSE>
+template <typename T, int MODE>
 int entry(const void* mat, const void* n0, const void* p0, const void* e0,
           const void* obs, const void* msk, const void* vmask, const void* pl0,
           const void* wtab, const void* bdf, void* sse, void* esum, void* conv,
           void* its, void* maxit, void* n_out, void* p_out, void* e_out,
           void* fulls, void* execs, int batch, int L, int T_steps, int stride,
-          int num_exp, int has_mask, int normalize, int ext_pl0, int pred_order,
+          int offgrid_k, int num_exp, int has_mask, int normalize, int ext_pl0, int pred_order,
           int max_iters, int chord_budget, int approx_inv, double tol,
           double step_tol, double log_scale, double min_val, double settle_guard,
           double skip_accept_factor, double skip_tighten, double stall,
@@ -649,14 +687,15 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
   a.conv = (int*)conv; a.its = (int*)its; a.maxit = (int*)maxit;
   a.n_out = (T*)n_out; a.p_out = (T*)p_out; a.e_out = (T*)e_out;
   a.fulls = (int*)fulls; a.execs = (int*)execs;
-  a.batch = batch; a.L = L; a.T_steps = T_steps; a.stride = stride; a.num_exp = num_exp;
+  a.batch = batch; a.L = L; a.T_steps = T_steps; a.stride = stride;
+  a.offgrid_k = offgrid_k; a.num_exp = num_exp;
   a.has_mask = has_mask; a.normalize = normalize; a.ext_pl0 = ext_pl0;
   a.pred_order = pred_order; a.max_iters = max_iters; a.chord_budget = chord_budget;
   a.approx_inv = approx_inv;
   a.tol = tol; a.step_tol = step_tol; a.log_scale = log_scale; a.min_val = min_val;
   a.settle_guard = settle_guard; a.skip_accept_factor = skip_accept_factor;
   a.skip_tighten = skip_tighten; a.stall = stall; a.step_tol_guard = step_tol_guard;
-  return launch<T, COARSE>(a, (cudaStream_t)stream);
+  return launch<T, MODE>(a, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -667,33 +706,40 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
       const void *wtab, const void *bdf, void *sse, void *esum, void *conv,     \
       void *its, void *maxit, void *n_out, void *p_out, void *e_out,            \
       void *fulls, void *execs, int batch, int L, int T_steps, int stride,      \
-      int num_exp, int has_mask, int normalize, int ext_pl0, int pred_order,    \
+      int offgrid_k, int num_exp, int has_mask, int normalize, int ext_pl0, int pred_order,    \
       int max_iters, int chord_budget, int approx_inv, double tol,              \
       double step_tol, double log_scale, double min_val, double settle_guard,   \
       double skip_accept_factor, double skip_tighten, double stall,             \
       double step_tol_guard, void *stream
 #define TRPL_ENTRY_CALL                                                          \
   mat, n0, p0, e0, obs, msk, vmask, pl0, wtab, bdf, sse, esum, conv, its, maxit, \
-      n_out, p_out, e_out, fulls, execs, batch, L, T_steps, stride, num_exp,     \
+      n_out, p_out, e_out, fulls, execs, batch, L, T_steps, stride, offgrid_k,   \
+      num_exp,                                                                   \
       has_mask, normalize, ext_pl0, pred_order, max_iters, chord_budget,         \
       approx_inv, tol, step_tol, log_scale, min_val, settle_guard,               \
       skip_accept_factor, skip_tighten, stall, step_tol_guard, stream
 
 // Plain C interface, loaded with ctypes by ops/horizon_kernel.py: one
-// launcher per mode (stride 1, stride S > 1) and dtype.  Each returns the
+// launcher per mode (stride 1, stride S > 1, off-grid) and dtype.  Each returns the
 // launch's cudaError_t (0 on success); the kernel runs on the given stream
 // and does not synchronise.
 extern "C" int trpl_horizon_chord_stride1_f32(TRPL_ENTRY_ARGS) {
-  return entry<float, false>(TRPL_ENTRY_CALL);
+  return entry<float, STRIDE1>(TRPL_ENTRY_CALL);
 }
 extern "C" int trpl_horizon_chord_stride1_f64(TRPL_ENTRY_ARGS) {
-  return entry<double, false>(TRPL_ENTRY_CALL);
+  return entry<double, STRIDE1>(TRPL_ENTRY_CALL);
 }
 extern "C" int trpl_horizon_chord_strides_f32(TRPL_ENTRY_ARGS) {
-  return entry<float, true>(TRPL_ENTRY_CALL);
+  return entry<float, STRIDES>(TRPL_ENTRY_CALL);
 }
 extern "C" int trpl_horizon_chord_strides_f64(TRPL_ENTRY_ARGS) {
-  return entry<double, true>(TRPL_ENTRY_CALL);
+  return entry<double, STRIDES>(TRPL_ENTRY_CALL);
+}
+extern "C" int trpl_horizon_chord_offgrid_f32(TRPL_ENTRY_ARGS) {
+  return entry<float, OFFGRID>(TRPL_ENTRY_CALL);
+}
+extern "C" int trpl_horizon_chord_offgrid_f64(TRPL_ENTRY_ARGS) {
+  return entry<double, OFFGRID>(TRPL_ENTRY_CALL);
 }
 extern "C" const char* trpl_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -2,12 +2,16 @@
 
 Replaces ``horizon_kernel._kernel`` of the JAX package
 (bayesian_inference_trpl_tpu/ops/pallas/horizon_kernel.py:447-746, launched
-by ``_call`` at :761-902) in its two modes on the main path:
+by ``_call`` at :761-902) in its three chord modes:
 
 * stride 1 (``solve_horizon_fused``): the fine phase;
 * stride S (``solve_coarse_phase_fused``): one coarse rung of the ladder,
   adding cubic log-space dense output at the S fine observation points of
-  each coarse step.
+  each coarse step;
+* off-grid, ``offgrid_k = K`` (``solve_phase_offgrid_fused``): one phase
+  of the off-grid path, scoring K observation slots per step from
+  per-slot Lagrange weights over the same 4-node log-PL window, with a
+  liveness row in place of the pad-only rule.
 
 Per step, for every sample: rolling 6-slot N/P/E histories with the BDF1->5
 ramp, the extrapolated predictor with positivity fallback, chord Newton
@@ -28,8 +32,9 @@ Three pieces live here:
   iteration loop, refresh the Jacobian).  The CUDA kernel runs one sample
   per thread block, so it is held to ``group=1``; the JAX kernel takes them
   over its whole sample tile, so it is held to ``group`` = the tile.
-* :func:`from_jax_inputs` -- turns the JAX package's inputs (as numpy) into
-  this port's tensors and configs, so that tests feed both the same thing.
+* :func:`from_jax_inputs` and :func:`offgrid_tables_from_jax` -- turn the
+  JAX package's inputs (as numpy) into this port's tensors and configs, so
+  that tests feed both the same thing.
 """
 from __future__ import annotations
 
@@ -66,8 +71,8 @@ STRICT_SKIP_TIGHTEN = 0.1
 PRED_ORDER = {"previous": 0, "linear": 1, "quadratic": 2, "geometric": 3}
 
 # Launches of the CUDA kernel per mode, counted by horizon_chord where it
-# launches; chip_smoke.py zeroes them around the main path.
-launches = {"stride_1": 0, "stride_s": 0}
+# launches; chip_smoke.py zeroes them around each main path.
+launches = {"stride_1": 0, "stride_s": 0, "offgrid": 0}
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "horizon_kernel.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "trpl_torch_kernels"
@@ -85,7 +90,7 @@ def _chord_knobs(cfg: SolverConfig):
 
 class HorizonParams(NamedTuple):
     """Scalar arguments of one horizon launch."""
-    stride: int               # 1: fine phase; S > 1: coarse rung
+    stride: int               # 1: fine or off-grid phase; S > 1: coarse rung
     tol: float
     step_tol: float
     log_scale: float          # ignored when normalize
@@ -100,6 +105,7 @@ class HorizonParams(NamedTuple):
     skip_accept_factor: float = SKIP_ACCEPT_FACTOR
     step_tol_guard: float = STEP_TOL_RESIDUAL_GUARD
     approx_inv: bool = False  # fast reciprocal + one Newton refinement
+    offgrid_k: int = 0        # K > 0: off-grid mode with K slots per step
 
 
 class HorizonOut(NamedTuple):
@@ -217,16 +223,23 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
       mat: (batch, 12) nondimensional parameters (already on the phase's dt).
       n0/p0/e0: (batch, L) phase-start state.
       obs: stride 1: (num_exp, T), column j the observation at step j+1;
-        stride S: (num_exp, C, S), the S fine points of each coarse step.
+        stride S: (num_exp, C, S), the S fine points of each coarse step;
+        off-grid: (num_exp, C, K) slot values.
       msk: optional per-step weights (num_exp, T | C); for stride S the
-        step's weight is the max over its fine points.
-      vmask: stride S with msk: per-fine-point weights (num_exp, C, S).
+        step's weight is the max over its fine points.  Off-grid: the
+        (C,) liveness row (only steps after the last observation, 0 here,
+        are forgiven a Newton failure).
+      vmask: stride S with msk: per-fine-point weights (num_exp, C, S);
+        off-grid: per-slot weights (num_exp, C, K).
       pl0: optional (batch,) external normalization anchor.
-      wtab: stride S: (3, S, 4) Lagrange table (models/twophase.py).
+      wtab: stride S: (3, S, 4) Lagrange table (models/twophase.py);
+        off-grid: per-slot Lagrange weights (num_exp, C, 4K), laid out
+        [a*K + k] (models/offgrid.build_offgrid_tables).
       group: samples per shared chord decision (see module docstring).
     """
     batch, L = n0.shape
     S = prm.stride
+    K = prm.offgrid_k
     num_exp, T = obs.shape[0], obs.shape[1]
     mp = MatParams.from_array(mat)
     tol = _scalar(prm.tol, n0)
@@ -246,13 +259,15 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             return torch.log10(torch.clamp_min(x / pl0_s, mv))
         return torch.log10(torch.clamp_min(x, mv)) + log_scale
 
-    acc_shape = (num_exp, batch) if S == 1 else (num_exp, batch, S)
+    # Per-fine-point (stride S) or per-slot (off-grid) sums, reduced at the
+    # end as the kernel does.
+    acc_shape = (num_exp, batch, K or S) if K or S > 1 else (num_exp, batch)
     sse = torch.zeros(acc_shape, dtype=n0.dtype, device=n0.device)
     esum = torch.zeros_like(sse)
     conv = torch.ones(batch, dtype=torch.bool, device=n0.device)
     its = torch.zeros(batch, dtype=torch.int32, device=n0.device)
     maxit = torch.zeros_like(its)
-    if S > 1:
+    if S > 1 or K:
         lpw = [torch.zeros_like(pl00)] * 3 + [logpl(pl00)]
 
     for t in range(T):
@@ -290,7 +305,23 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
 
         lp = logpl(mp.rate * ((Nn * Pn).sum(-1) - L * n0p0))
         w_any = None
-        if S == 1:
+        if K:
+            # Off-grid slots: the 4-node window at K offsets per experiment,
+            # summed per slot (over K only at the end, as the kernel does).
+            lpw = lpw[1:] + [lp]
+            for e in range(num_exp):
+                wk = wtab[e, t]                                    # (4K,)
+                lp_at = (lpw[0][:, None] * wk[None, 0:K]
+                         + lpw[1][:, None] * wk[None, K:2 * K]
+                         + lpw[2][:, None] * wk[None, 2 * K:3 * K]
+                         + lpw[3][:, None] * wk[None, 3 * K:4 * K])  # (batch, K)
+                err = lp_at - obs[e, t][None, :]
+                wg = vmask[e, t][None, :]
+                sse[e] = sse[e] + wg * err * err
+                esum[e] = esum[e] + wg * err
+            # Liveness: only steps past the last observation are forgiven.
+            done = done | ~(msk[t] > 0)
+        elif S == 1:
             for e in range(num_exp):
                 err = lp - obs[e, t]
                 if msk is not None:
@@ -325,7 +356,7 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             done = done | ~(w_any > 0)
         conv = conv & done
 
-    if S > 1:
+    if sse.dim() == 3:
         sse, esum = sse.sum(-1), esum.sum(-1)
     k = T % HISTORY
     return HorizonOut(sse, esum, conv, its, maxit, nh[k], ph[k], eh[k],
@@ -378,11 +409,11 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for name in ("trpl_horizon_chord_stride1_f32", "trpl_horizon_chord_stride1_f64",
-                     "trpl_horizon_chord_strides_f32", "trpl_horizon_chord_strides_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * 20 + [ci] * 12 + [cd] * 9 + [vp]
-            fn.restype = ci
+        for mode in ("stride1", "strides", "offgrid"):
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"trpl_horizon_chord_{mode}_{dt}")
+                fn.argtypes = [vp] * 20 + [ci] * 13 + [cd] * 9 + [vp]
+                fn.restype = ci
         lib.trpl_error_string.argtypes = [ci]
         lib.trpl_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -422,14 +453,22 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     if L & (L - 1) or not 32 <= L <= 1024:
         raise ValueError(f"horizon_chord: L must be a power of two in "
                          f"[32, 1024], got {L}")
-    S = prm.stride
+    S, K = prm.stride, prm.offgrid_k
     num_exp, T = obs.shape[0], obs.shape[1]
     _check("mat", mat, dtype, (batch, 12), dev)
     for name, x in (("n0", n0), ("p0", p0), ("e0", e0)):
         _check(name, x, dtype, (batch, L), dev)
-    _check("obs", obs, dtype, (num_exp, T) if S == 1 else (num_exp, T, S), dev)
-    if msk is not None:
-        _check("msk", msk, dtype, (num_exp, T), dev)
+    if K:
+        if S != 1:
+            raise ValueError(f"horizon_chord: off-grid mode takes stride 1, got {S}")
+        _check("obs", obs, dtype, (num_exp, T, K), dev)
+        _check("msk", msk, dtype, (T,), dev)
+        _check("vmask", vmask, dtype, (num_exp, T, K), dev)
+        _check("wtab", wtab, dtype, (num_exp, T, 4 * K), dev)
+    else:
+        _check("obs", obs, dtype, (num_exp, T) if S == 1 else (num_exp, T, S), dev)
+        if msk is not None:
+            _check("msk", msk, dtype, (num_exp, T), dev)
     if S > 1:
         _check("wtab", wtab, dtype, (3, S, 4), dev)
         if S > L:
@@ -446,14 +485,15 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     conv, its, maxit, fulls, execs = ints
     n, p, e = (torch.empty_like(n0) for _ in range(3))
     lib = _library()
-    mode = "stride_1" if S == 1 else "stride_s"
+    mode, sym = (("offgrid", "offgrid") if K else ("stride_1", "stride1") if S == 1
+                  else ("stride_s", "strides"))
     fn = getattr(lib, "trpl_horizon_chord_{}_{}".format(
-        "stride1" if S == 1 else "strides", "f32" if dtype == torch.float32 else "f64"))
+        sym, "f32" if dtype == torch.float32 else "f64"))
     rc = fn(_ptr(mat), _ptr(n0), _ptr(p0), _ptr(e0), _ptr(obs), _ptr(msk),
             _ptr(vmask), _ptr(pl0), _ptr(wtab), _ptr(bdf),
             _ptr(sse), _ptr(esum), _ptr(conv), _ptr(its), _ptr(maxit),
             _ptr(n), _ptr(p), _ptr(e), _ptr(fulls), _ptr(execs),
-            batch, L, T, S, num_exp, int(msk is not None),
+            batch, L, T, S, K, num_exp, int(msk is not None and not K),
             int(prm.normalize), int(pl0 is not None), int(prm.pred_order),
             int(prm.max_iters), int(prm.chord_budget), int(prm.approx_inv),
             float(prm.tol), float(prm.step_tol), float(prm.log_scale),
@@ -469,8 +509,8 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
 
 
 # ---------------------------------------------------------------------------
-# Phase-level entries (the JAX package's solve_horizon_fused and
-# solve_coarse_phase_fused)
+# Phase-level entries (the JAX package's solve_horizon_fused,
+# solve_coarse_phase_fused and solve_phase_offgrid_fused)
 # ---------------------------------------------------------------------------
 
 def _params(cfg: SolverConfig, obs: FusedObs, stride: int, log_scale: float):
@@ -546,6 +586,60 @@ def solve_coarse_phase_fused(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
     out = kernel(rescale_dt(mat_nd, S).contiguous(), n_init, p_init, e_init,
                  obs_sc, msk, vmask, pl0_in, wtab, _params(cfg, obs, S, log_scale))
     return _result(out, out.sse, out.esum)
+
+
+def solve_phase_offgrid_fused(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
+                              obs_meta: FusedObs, tbl, pl0, S: int, live,
+                              kernel=None) -> SolveResult:
+    """One off-grid phase in a single launch; the counterpart of
+    models/offgrid._phase_offgrid (same dt rescaling, BDF order-ramp
+    restart, per-slot Lagrange dense output, weight-linear sums and
+    liveness-gated convergence).
+
+    Args:
+      mat_nd: (batch, 12) FINE-dt parameters (rescaled here to S dt).
+      obs_meta: FusedObs carrying only the scalars (log_scale, min_val,
+        normalize); the values live in the slot tables.
+      tbl: (W (C, E, K, 4), V (C, E, K), M (C, E, K)) tensors of this phase
+        (models/offgrid.build_offgrid_tables; M holds the point weights).
+      pl0: (batch,) run-t=0 fine-dt PL (the normalization anchor).
+      S: this phase's stride (1 for the fine phase).
+      live: (C,) liveness flags; steps after the last observation of the
+        run are forgiven a Newton failure.
+
+    Returns this phase's terms only; the kernel runs at stride 1 on the
+    rescaled parameters.
+    """
+    from ..models.twophase import rescale_dt
+
+    kernel = horizon_chord if kernel is None else kernel
+    W_all, V_all, M_all = tbl
+    C, num_exp, K = V_all.shape
+    # Kernel layout: values and weights (E, C, K); Lagrange weights
+    # (E, C, 4K) with the [a*K + k] layout.
+    V = V_all.permute(1, 0, 2).contiguous()
+    Mw = M_all.permute(1, 0, 2).contiguous()
+    Wt = W_all.permute(1, 0, 3, 2).reshape(num_exp, C, 4 * K).contiguous()
+    live_row = torch.as_tensor(live, device=n_init.device).to(n_init.dtype).contiguous()
+    mat_c = rescale_dt(mat_nd, S) if S != 1 else mat_nd
+    # Nondimensional PL scales with dt: the log offset and the anchor shift
+    # to this phase's units, in the compute dtype.
+    log_scale = 0.0 if obs_meta.normalize else float(
+        _scalar(obs_meta.log_scale, n_init) - _scalar(np.log10(S), n_init))
+    pl0_in = (pl0 * S).contiguous() if obs_meta.normalize else None
+    prm = _params(cfg, obs_meta, 1, log_scale)._replace(offgrid_k=int(K))
+    out = kernel(mat_c.contiguous(), n_init, p_init, e_init, V, live_row, Mw,
+                 pl0_in, Wt, prm)
+    return _result(out, out.sse, out.esum)
+
+
+def offgrid_tables_from_jax(tbl, live, dtype=torch.float64, device="cpu"):
+    """One phase's JAX slot tables (W, V, M) and liveness row, as numpy or
+    anything ``np.asarray`` takes, as this port's tensors."""
+    def t(a):
+        return torch.tensor(np.array(a), dtype=dtype, device=device)
+    return tuple(t(a) for a in tbl), torch.tensor(np.array(live), dtype=torch.bool,
+                                                   device=device)
 
 
 def from_jax_inputs(mat_nd, n0, p0, e0, obs_values, log_scale, min_val,

@@ -6,6 +6,12 @@ the reference's ``sims_per_gpu`` batching (bayeslib.py:131-146), and
 accumulates per-sample log-likelihoods.  The next chunk is enqueued
 before the previous one is read back, so host-side preparation overlaps
 device work.  More than one device is ROADMAP A15.
+
+There is no retry pass for non-converged samples (the JAX package's
+``_retry_nonconverged``): every path of this port takes its chord
+decisions per sample, so a sample's result does not depend on its
+batch-mates and a failure-only batch repeats the failure bit for bit
+(tests/test_torch_runner.py).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 
 from .. import physics
 from ..models.driver import SimParams, initial_excess_density, pl_log_scale
+from ..models.offgrid import OffGridTables, solve_offgrid
 from ..models.solver import FusedObs, SolverConfig, solve
 from ..models.twophase import solve_multiphase
 from ..ops.likelihood import FLOAT_MIN, log_likelihood_from_terms
@@ -66,13 +73,29 @@ def _chunk_likelihood(mat_nd, mag, dn, obs_values, log_scale, obs_mask=None,
     return ll, res.converged
 
 
+def _chunk_likelihood_offgrid(mat_nd, mag, dn, tables: OffGridTables,
+                              log_scale, *, cfg: SolverConfig,
+                              normalize: bool, schedule):
+    """Chunk program for OFF-GRID observation times: solve with the
+    slot-table fused likelihood (models/offgrid.py).  Returns
+    (P_chunk (num_exp, chunk), converged (chunk,))."""
+    n0 = mat_nd[:, 0:1] + dn[None, :]
+    p0 = mat_nd[:, 1:2] + dn[None, :]
+    e0 = torch.zeros_like(n0)
+    res = solve_offgrid(mat_nd, n0, p0, e0, cfg, tables, schedule,
+                        log_scale, FLOAT_MIN, normalize=normalize)
+    ll = log_likelihood_from_terms(res.sse, res.err_sum, tables.n_obs[:, None],
+                                   mag[None, :])
+    ll = torch.where(res.converged[None, :], ll, torch.nan)
+    return ll, res.converged
+
+
 class Runner:
     """Chunked executor on one device (``cuda`` unless told ``cpu``)."""
 
-    def __init__(self, chunk: int = 1024, retries: int = 1, device="cuda"):
+    def __init__(self, chunk: int = 1024, device="cuda"):
         self.device = torch.device(device)
         self.chunk = int(chunk)
-        self.retries = int(retries)
         self.timers = RunnerTimers()
 
     def _put(self, arr, dtype):
@@ -86,36 +109,11 @@ class Runner:
             mag_c = np.concatenate([mag_c, np.repeat(mag_c[-1:], pad, 0)], 0)
         return mat_c, mag_c
 
-    def _retry_nonconverged(self, dispatch, mat_nd_all, mag_all, out, conv,
-                            P_before):
-        """Re-dispatch the non-converged samples of a finished curve in
-        failure-only batches and repair their likelihoods (a second batch
-        layout for the failures)."""
-        for r in range(self.retries):
-            idx = np.where(~conv)[0]
-            if idx.size == 0:
-                return
-            t0 = time.perf_counter()
-            before = idx.size
-            for lo in range(0, idx.size, self.chunk):
-                sel = idx[lo:lo + self.chunk]
-                ll, ok = dispatch(*self._pad(mat_nd_all[sel], mag_all[sel]))
-                ll = ll.cpu().numpy()[:, :sel.size]
-                ok = ok.cpu().numpy()[:sel.size]
-                rec = sel[ok]
-                out[:, rec] = P_before[:, rec] + ll[:, ok]
-                conv[rec] = True
-            self.timers.solver_time += time.perf_counter() - t0
-            logger.info("Retry %d: %d of %d non-converged samples recovered "
-                        "(%.1fs)", r, before - int((~conv).sum()), before,
-                        time.perf_counter() - t0)
-
     def run_curve(self, X, sim: SimParams, ini_par, obs_log_values,
                   normalize: bool = False, dtype=torch.float32,
                   progress: Optional[Callable[[int, int], None]] = None,
                   chunk_done: Optional[Callable[[int, np.ndarray], None]] = None,
-                  out: Optional[np.ndarray] = None, obs_mask=None,
-                  retry_done: Optional[Callable[[], None]] = None):
+                  out: Optional[np.ndarray] = None, obs_mask=None):
         """Evaluate the log-likelihood of every sample in X for one
         excitation curve against observations on the simulation grid.
 
@@ -126,29 +124,64 @@ class Runner:
           out: optional (num_exp, n) accumulator to ADD likelihoods into
             (NaN marks non-converged samples and propagates).
           obs_mask: optional (num_exp, sim.num_pl) per-point weights.
-          retry_done: called after the retry pass repairs any samples.
 
         Returns (out (num_exp, n), converged (n,)).
         """
+        obs = self._put(obs_log_values, dtype)
+        mask = None if obs_mask is None else self._put(obs_mask, dtype)
+        statics = dict(cfg=sim.solver_config(), normalize=normalize,
+                       fast=sim.fast_phases)
+
+        def chunk_fn(mat_c, mag_c, dn, log_scale):
+            return _chunk_likelihood(mat_c, mag_c, dn, obs, log_scale, mask,
+                                     **statics)
+        return self._run(chunk_fn, X, sim, ini_par, len(obs_log_values), dtype,
+                         progress, chunk_done, out)
+
+    def run_curve_offgrid(self, X, sim: SimParams, ini_par, tables: OffGridTables,
+                          schedule, normalize: bool = False, dtype=torch.float32,
+                          progress: Optional[Callable[[int, int], None]] = None,
+                          chunk_done: Optional[Callable[[int, np.ndarray], None]] = None,
+                          out: Optional[np.ndarray] = None):
+        """Off-grid variant of :meth:`run_curve`: observation times are
+        scored inside the solve from precomputed slot tables
+        (models/offgrid.py); arguments and returns as :meth:`run_curve`.
+
+        Args:
+          tables: OffGridTables from models.offgrid.build_offgrid_tables
+            (times mapped with this sim's dt and the given schedule).
+          schedule: ((stride, num_fine_steps), ...) covering sim.T.
+        """
+        dev_tables = OffGridTables(
+            phases=tuple(tuple(self._put(a, dtype) for a in tbl)
+                         for tbl in tables.phases),
+            v0=self._put(tables.v0, dtype), m0=self._put(tables.m0, dtype),
+            n_obs=self._put(tables.n_obs, dtype))
+        statics = dict(cfg=sim.solver_config(), normalize=normalize,
+                       schedule=tuple((int(s), int(c)) for s, c in schedule))
+
+        def chunk_fn(mat_c, mag_c, dn, log_scale):
+            return _chunk_likelihood_offgrid(mat_c, mag_c, dn, dev_tables,
+                                             log_scale, **statics)
+        return self._run(chunk_fn, X, sim, ini_par, len(tables.v0), dtype,
+                         progress, chunk_done, out)
+
+    def _run(self, chunk_fn, X, sim: SimParams, ini_par, num_exp: int, dtype,
+             progress, chunk_done, out):
+        """The chunk loop shared by both curve kinds."""
         n = len(X)
-        num_exp = len(obs_log_values)
         mat_nd_all = physics.nondimensionalize(np.asarray(X)[:, :12], sim.dx, sim.dt)
         mag_all = np.asarray(X)[:, 12]
         dn = initial_excess_density(sim, ini_par, "points", dtype=dtype,
                                     device=self.device)
-        obs = self._put(obs_log_values, dtype)
-        mask = None if obs_mask is None else self._put(obs_mask, dtype)
         log_scale = pl_log_scale(sim)
-        statics = dict(cfg=sim.solver_config(), normalize=normalize,
-                       fast=sim.fast_phases)
         if out is None:
             out = np.zeros((num_exp, n))
-        P_before = out.copy() if self.retries else None
         conv = np.ones(n, dtype=bool)
 
         def dispatch(mat_c, mag_c):
-            return _chunk_likelihood(self._put(mat_c, dtype), self._put(mag_c, dtype),
-                                     dn, obs, log_scale, mask, **statics)
+            return chunk_fn(self._put(mat_c, dtype), self._put(mag_c, dtype),
+                            dn, log_scale)
 
         def harvest(ci, lo, size, ll, ok):
             t0 = time.perf_counter()
@@ -178,9 +211,4 @@ class Runner:
             pending = (ci, lo, hi - lo, ll, ok)
         if pending is not None:
             harvest(*pending)
-        if self.retries and not conv.all():
-            self._retry_nonconverged(dispatch, mat_nd_all, mag_all, out, conv,
-                                     P_before)
-            if retry_done is not None:
-                retry_done()
         return out, conv

@@ -5,9 +5,10 @@ The counterpart of the reference driver chain
 observations and excitations, draw the sample grid, evaluate the
 log-likelihood of every sample against every experiment and excitation
 curve on the device, and export BAYRAN (X, P) arrays.  The likelihood is
-fused into the solver whenever observation times sit on the simulation
-grid; the branches the JAX package has beyond that raise
-NotImplementedError naming their ROADMAP item.
+fused into the solver: on the simulation grid directly, off it (log-spaced
+times) through slot tables of dense-output weights; the branches the JAX
+package has beyond that raise NotImplementedError naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -94,6 +95,43 @@ def _sigma_weights(sigma):
     with np.errstate(divide="ignore"):
         w[good] = 1.0 / s[good] ** 2
     return w
+
+
+def plan_offgrid(cfg: InferenceConfig, sim: SimParams, e_data, ic_num: int):
+    """Build the off-grid fused plan for one curve: a shortened SimParams,
+    the phase schedule and the slot tables (models/offgrid.py).
+
+    Returns None when the curve cannot be fused off-grid: observation times
+    beyond the simulated horizon or before 0, or tables that
+    build_offgrid_tables refuses (a duplicate t=0 point).  Those curves need
+    the interpolation fallback (ROADMAP A12)."""
+    from .models.offgrid import build_offgrid_tables
+
+    num_exp = len(e_data)
+    times = [np.asarray(e_data[e][0][ic_num], dtype=float)
+             for e in range(num_exp)]
+    values = [np.asarray(e_data[e][1][ic_num], dtype=float)
+              for e in range(num_exp)]
+    tmax = max((t.max() if len(t) else 0.0) for t in times)
+    if tmax > sim.time * (1 + 1e-9):
+        return None
+    if any(np.any(t < 0) for t in times):
+        return None
+    # Shortened horizon covering the latest observation (as
+    # plan_fused_horizon does).
+    T_c = min(max(int(np.ceil(tmax / sim.dt - 1e-9)), 1), sim.T)
+    sim_c = _with_horizon(sim, T_c)
+    schedule = sim_c.fast_phases or ((1, T_c),)
+    weights = ([_sigma_weights(e_data[e][2][ic_num]) for e in range(num_exp)]
+               if cfg.sim_flags.use_uncertainty else None)
+    try:
+        tables = build_offgrid_tables(times, values, schedule, sim_c.dt,
+                                      weights=weights)
+    except ValueError as exc:
+        logging.getLogger(__name__).warning(
+            "off-grid fusion unavailable for curve %d (%s)", ic_num, exc)
+        return None
+    return sim_c, schedule, tables
 
 
 def sim_params_for_curve(cfg: InferenceConfig, ic_num: int, num_curves: int) -> SimParams:
@@ -185,14 +223,14 @@ def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
             logger.info("Curve #%d: thickness=%s, %d timesteps to %s ns",
                         ic_num, sim.length, sim.T, sim.time)
         plan = plans[ic_num]
+        og = None
         if plan is None:
-            if cfg.grid.offgrid_fused:
+            og = (plan_offgrid(cfg, sim, e_data, ic_num)
+                  if cfg.grid.offgrid_fused else None)
+            if og is None:
                 raise NotImplementedError(
-                    "off-grid observation times (the fused slot-table path) "
-                    "are not ported yet: ROADMAP A10")
-            raise NotImplementedError(
-                "off-grid observation times (the interpolation fallback) "
-                "are not ported yet: ROADMAP A12")
+                    "off-grid observation times (the interpolation fallback) "
+                    "are not ported yet: ROADMAP A12")
 
         def _ckpt_chunk(ci, _ll, _ic=ic_num):
             if ckpt is not None:
@@ -201,24 +239,29 @@ def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
                     chunk=runner.chunk, curve_index=_ic, chunk_index=ci + 1)
                 ckpt.save_progress(state, P)
 
-        def _ckpt_retry():
-            # Re-checkpoint after the retry pass repairs failed samples.
-            _ckpt_chunk(-(-len(X) // runner.chunk) - 1, None)
-
         if ckpt is not None:
             ckpt.save_curve_start(P)
-        sim_c, obs_vals, obs_mask = plan
-        if logger:
-            logger.info("Observation times on simulation grid: fused likelihood "
-                        "(horizon %d steps%s)", sim_c.T,
-                        ", masked" if obs_mask is not None else "")
-        prog = ((lambda ci, nc: logger.info(
-            "Curve #%d: chunk %d of %d", ic_num, ci, nc)) if logger else None)
-        _, conv = runner.run_curve(
-            X, sim_c, init_params[ic_num], obs_vals,
-            normalize=cfg.sim_flags.self_normalize, dtype=dtype,
-            progress=prog, chunk_done=_ckpt_chunk, out=P, obs_mask=obs_mask,
-            retry_done=_ckpt_retry)
+        common = dict(normalize=cfg.sim_flags.self_normalize, dtype=dtype,
+                      chunk_done=_ckpt_chunk, out=P,
+                      progress=(lambda ci, nc: logger.info(
+                          "Curve #%d: chunk %d of %d", ic_num, ci, nc))
+                      if logger else None)
+        if og is None:
+            sim_c, obs_vals, obs_mask = plan
+            if logger:
+                logger.info("Observation times on simulation grid: fused "
+                            "likelihood (horizon %d steps%s)", sim_c.T,
+                            ", masked" if obs_mask is not None else "")
+            _, conv = runner.run_curve(X, sim_c, init_params[ic_num], obs_vals,
+                                       obs_mask=obs_mask, **common)
+        else:
+            sim_c, schedule, tables = og
+            if logger:
+                logger.info("Observation times off-grid: fused slot-table "
+                            "likelihood (horizon %d steps, %d phases)",
+                            sim_c.T, len(schedule))
+            _, conv = runner.run_curve_offgrid(X, sim_c, init_params[ic_num],
+                                               tables, schedule, **common)
         conv_all &= conv
     P[:, ~conv_all] = np.nan
     return conv_all
@@ -261,8 +304,7 @@ def bayes(cfg: InferenceConfig, logger: Optional[logging.Logger] = None,
     if logger:
         logger.info("Initialized %d random samples", len(X))
 
-    runner = Runner(chunk=cfg.device.chunk_per_device,
-                    retries=cfg.device.retry_nonconverged, device=device)
+    runner = Runner(chunk=cfg.device.chunk_per_device, device=device)
     ckpt = None
     if cfg.checkpoint and cfg.paths.out_dirs:
         ckpt = CheckpointManager(cfg.paths.out_dirs[0])

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from bayesian_inference_trpl_tpu_torch import physics
+from bayesian_inference_trpl_tpu_torch.models import offgrid
 from bayesian_inference_trpl_tpu_torch.models.driver import (
     SimParams, initial_excess_density, pl_log_scale)
 from bayesian_inference_trpl_tpu_torch.models.solver import FusedObs, SolverConfig
@@ -75,6 +76,43 @@ def test_kernel_matches_plain_both_modes(cuda_device):
         torch.testing.assert_close(out.n, ref.n, rtol=1e-9, atol=0.0)
     assert hk.launches["stride_1"] - before["stride_1"] == 1
     assert hk.launches["stride_s"] - before["stride_s"] == 2
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_offgrid_kernel_matches_plain(cuda_device, normalize):
+    """The off-grid mode on a sigma-weighted log-spaced ladder (stride 1, 8,
+    16), float64: conv, its, fulls and execs equal; sse and esum within
+    1e-9 relative; one launch per phase."""
+    mat, n0, p0, e0, _, cfg = _problem(cuda_device, torch.float64)
+    sched = ((1, 36), (8, 64), (16, 64))
+    sim = SimParams(length=311.0, time=2000.0 * cfg.num_steps / 80000, L=128,
+                    T=cfg.num_steps)
+    rng = np.random.default_rng(1)
+    times = [np.concatenate([[0.0], np.geomspace(0.7, 0.9 * sim.T, n)]) * sim.dt
+             for n in (40, 25)]
+    values = [-3.0 - t / 2.0 + 0.01 * rng.standard_normal(t.size) for t in times]
+    if normalize:
+        values = [v - v[0] for v in values]
+    tables = offgrid.build_offgrid_tables(
+        times, values, sched, sim.dt,
+        weights=[rng.uniform(0.5, 2.0, t.size) for t in times])
+    calls = []
+
+    def rec(*args):
+        calls.append((args, hk.horizon_chord_plain(*args, group=1)))
+        return calls[-1][1]
+    offgrid.solve_offgrid(mat, n0, p0, e0, cfg, tables, sched, pl_log_scale(sim),
+                          1e-300, normalize=normalize, kernel=rec)
+    before = hk.launches["offgrid"]
+    for args, ref in calls:
+        out = hk.horizon_chord(*args)
+        torch.cuda.synchronize()
+        for name in ("conv", "its", "maxit", "fulls", "execs"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        torch.testing.assert_close(out.sse, ref.sse, rtol=1e-9, atol=0.0)
+        torch.testing.assert_close(out.esum, ref.esum, rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(out.n, ref.n, rtol=1e-9, atol=0.0)
+    assert hk.launches["offgrid"] - before == 3
 
 
 def test_wrapper_rejects_bad_inputs(cuda_device):

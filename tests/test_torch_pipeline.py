@@ -81,7 +81,10 @@ def test_bayes_matches_jax(tmp_path, monkeypatch):
 
 def test_unported_branches_raise(tmp_path):
     """Branches the port does not carry yet raise NotImplementedError
-    naming their ROADMAP item instead of falling back."""
+    naming their ROADMAP item instead of falling back.  Off-grid times
+    (num_steps=T + 4 moves the grid) now take the fused slot-table route
+    (tests/test_torch_offgrid.py); only without it (offgrid_fused=False)
+    do they need the interpolation fallback, A12."""
     obs, exc = _write_synthetic(tmp_path, num_curves=1)
     cases = [
         (dict(resume=True), "A8"),
@@ -90,7 +93,6 @@ def test_unported_branches_raise(tmp_path):
         (dict(grid=dict(method="gauss_seidel")), "A13"),
         (dict(grid=dict(method="fused_horizon")), "B4"),
         (dict(grid=dict(method="coupled_newton_pallas")), "B5"),
-        (dict(grid=dict(num_steps=T + 4)), "A10"),
         (dict(grid=dict(num_steps=T + 4, offgrid_fused=False)), "A12"),
     ]
     for change, item in cases:
