@@ -33,8 +33,11 @@ class GridConfig:
     pl_stride: int = 1                             # plT
     tol_exp: float = 7.0
     max_iters: int = 10000
-    method: str = "coupled_newton"      # or "fused_horizon_chord" (the CUDA
-    #                                     horizon kernel, ops/horizon_kernel.py)
+    method: str = "coupled_newton"      # or "fused_horizon_chord" / "fused_horizon"
+    #                                     (the CUDA horizon kernel, chord / full
+    #                                     Newton, ops/horizon_kernel.py) or
+    #                                     "coupled_newton_pallas" (the per-step
+    #                                     Newton kernel, ops/newton_kernel.py)
     predictor: str = "previous"         # "linear": extrapolated Newton start
     step_tol: float = 0.0               # state-settled acceptance; 0 = off
     # Multi-phase fast solver (models/twophase.py): fine steps through the

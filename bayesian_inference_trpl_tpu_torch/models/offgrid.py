@@ -14,10 +14,12 @@ per-step slot tables:
     mask:    (C, num_exp, K)      point weight (0 = padding)
 
 A single ((1, T),) phase gives exact fixed-dt stepping with in-loop cubic
-interpolation.  With ``method="fused_horizon_chord"`` every phase, the
-fine one included, is one launch of the horizon kernel's off-grid mode
+interpolation.  With ``method="fused_horizon_chord"`` (chord Newton) or
+``"fused_horizon"`` (full Newton) every phase, the fine one included, is
+one launch of the horizon kernel's off-grid mode
 (ops/horizon_kernel.solve_phase_offgrid_fused); otherwise a Python step
-loop over coupled Newton (:func:`_phase_offgrid`) runs it.
+loop over coupled Newton (:func:`_phase_offgrid`) runs it, with one launch
+of the per-step Newton kernel per step for ``coupled_newton_pallas``.
 """
 from __future__ import annotations
 
@@ -248,16 +250,17 @@ def solve_offgrid(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
            m0 * e0 ** 2, m0 * e0)
     lives = [lv.to(dev) for lv in liveness(tables, schedule)]
 
-    # The chord method runs every phase (the fine one too: off-grid
+    # The fused methods run every phase (the fine one too: off-grid
     # scoring needs the window even at stride 1) as one kernel launch; a
     # multi-phase chord run is the fast-path ladder and takes the strict
     # chord profile, as twophase.solve_multiphase does.
-    chord = cfg.method == "fused_horizon_chord"
-    if chord and len(schedule) > 1 and not cfg.chord_strict:
+    fused = cfg.method in ("fused_horizon", "fused_horizon_chord")
+    if (cfg.method == "fused_horizon_chord" and len(schedule) > 1
+            and not cfg.chord_strict):
         cfg = cfg._replace(chord_strict=True)
     for (S, _), tbl, live in zip(schedule, tables.phases, lives):
         tbl = tuple(t(a) for a in tbl)
-        if chord:
+        if fused:
             from ..ops.horizon_kernel import solve_phase_offgrid_fused
             r = solve_phase_offgrid_fused(mat_nd, n, p, e, cfg, obs_meta, tbl,
                                           pl0, S, live, kernel=kernel)

@@ -1,9 +1,12 @@
 """BDF time evolution of the TRPL model with the fused log-likelihood.
 
 ``solve`` advances a batch of simulations over a fixed-dt horizon.  With
-``method="fused_horizon_chord"`` and fused observations the whole horizon
-is one launch of the horizon kernel (ops/horizon_kernel.py); otherwise a
-Python step loop runs coupled Newton (models/newton.py) step by step.
+``method="fused_horizon_chord"`` (chord Newton) or ``"fused_horizon"``
+(full Newton) and fused observations the whole horizon is one launch of
+the horizon kernel (ops/horizon_kernel.py); otherwise a Python step loop
+runs coupled Newton step by step: models/newton.coupled_newton_step, or
+for ``method="coupled_newton_pallas"`` one launch of the per-step Newton
+kernel per step (ops/newton_kernel.py).
 
 The likelihood is fused into the time loop: the loop carries running sums
 of the log-residual and its square, and the sampled ``mag_offset`` enters
@@ -16,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.newton_kernel import newton_step
 from .newton import coupled_newton_step
 from .trpl import BDF_TABLE, HISTORY, MatParams
 
@@ -30,7 +34,8 @@ class SolverConfig(NamedTuple):
     record_state_stride: Optional[int] = None
     record_iters: bool = False
     predictor: str = "previous"    # previous | linear | quadratic | geometric
-    method: str = "coupled_newton"  # coupled_newton | fused_horizon_chord
+    method: str = "coupled_newton"  # coupled_newton | coupled_newton_pallas |
+    #                                fused_horizon | fused_horizon_chord
     chord_strict: bool = False     # chord acceptance profile; solve_multiphase
     #                                forces True (ops/horizon_kernel._chord_knobs)
 
@@ -104,8 +109,14 @@ def _bdf_coeffs(t: int, like: torch.Tensor):
 
 def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol):
     """One coupled-Newton BDF step on the rolling histories (6, batch, L);
-    shared by ``solve`` and the coarse phases of models/twophase.py.
-    Updates the histories in place and returns (N, P, E, iters, ok)."""
+    shared by ``solve``, the coarse phases of models/twophase.py and the
+    off-grid phases of models/offgrid.py.  ``coupled_newton_pallas`` steps
+    with the per-step Newton kernel (ops/newton_kernel.newton_step, the JAX
+    package's pallas_newton_step), every other method with
+    models/newton.coupled_newton_step.  (The JAX package also sends the
+    fused-horizon methods' per-step dispatch to the Pallas step on the TPU;
+    its solve() never reaches that branch, so it is not ported.)  Updates
+    the histories in place and returns (N, P, E, iters, ok)."""
     a0, w = _bdf_coeffs(t, nh)
     bn = sum(_scalar(w.get(s, 0.0), nh) * nh[s] for s in range(HISTORY))
     bp = sum(_scalar(w.get(s, 0.0), ph) * ph[s] for s in range(HISTORY))
@@ -133,7 +144,8 @@ def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol
             Px = torch.where(Pm > 0, Pk * (Pk / torch.where(Pm > 0, Pm, 1.0)), Px)
         Nk = torch.where(Nx > 0, Nx, Nk)
         Pk = torch.where(Px > 0, Px, Pk)
-    Nn, Pn, En, iters, ok = coupled_newton_step(
+    step = newton_step if cfg.method == "coupled_newton_pallas" else coupled_newton_step
+    Nn, Pn, En, iters, ok = step(
         Nk, Pk, bn, bp, be, mp, a0, tol, cfg.max_iters, step_tol=step_tol)
     nh[kp] = Nn
     ph[kp] = Pn
@@ -156,8 +168,8 @@ def _check_supported(cfg: SolverConfig):
         raise NotImplementedError(
             "pl_stride > 1, record_state_stride and record_iters are not "
             "ported yet: ROADMAP A14")
-    if cfg.method not in ("coupled_newton", "fused_horizon_chord"):
-        from ..utils.validate import validate_solver
+    from ..utils.validate import SOLVER_METHODS, validate_solver
+    if cfg.method not in SOLVER_METHODS:
         validate_solver(cfg.method, cfg.predictor)
 
 
@@ -171,11 +183,12 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
       n_init/p_init/e_init: (batch, L) initial state (E on edges 0..L-1).
       obs: optional fused observations (enables in-loop likelihood).
       record_pl: emit the PL trace.
-      kernel: the horizon kernel's entry for fused chord solves (default
+      kernel: the horizon kernel's entry for fused solves (default
         ops.horizon_kernel.horizon_chord); tests pass its plain version.
     """
     _check_supported(cfg)
-    if cfg.method == "fused_horizon_chord" and obs is not None and not record_pl:
+    if (cfg.method in ("fused_horizon", "fused_horizon_chord") and obs is not None
+            and not record_pl):
         from ..ops.horizon_kernel import solve_horizon_fused
         return solve_horizon_fused(mat_nd, n_init, p_init, cfg, obs,
                                    e_init=e_init, kernel=kernel)

@@ -164,18 +164,21 @@ def solve_multiphase(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
     """Fused-likelihood solve of cfg.num_steps fine-dt steps via the given
     fine/coarse phase schedule.
 
-    With ``method="fused_horizon_chord"`` each phase is one launch of the
-    horizon kernel (stride 1 for the fine phase, stride S for each rung),
-    under the strict chord profile.  ``kernel`` replaces the kernel's entry
+    With ``method="fused_horizon_chord"`` (chord Newton, under the strict
+    chord profile) or ``"fused_horizon"`` (full Newton) each phase is one
+    launch of the horizon kernel (stride 1 for the fine phase, stride S for
+    each rung); every other method steps through :func:`_coarse_phase`
+    (``coupled_newton_pallas``: one launch of the per-step Newton kernel
+    per step).  ``kernel`` replaces the horizon kernel's entry
     (ops.horizon_kernel.horizon_chord); tests pass its plain version.
     """
     if cfg.pl_stride != 1:
         raise ValueError("multi-phase solver requires pl_stride == 1")
     # The fast path's accuracy budget requires the STRICT chord profile
-    # (ops/horizon_kernel._chord_knobs).
-    chord = cfg.method == "fused_horizon_chord"
-    if chord and not cfg.chord_strict:
+    # (ops/horizon_kernel._chord_knobs); full Newton has no chord knobs.
+    if cfg.method == "fused_horizon_chord" and not cfg.chord_strict:
         cfg = cfg._replace(chord_strict=True)
+    fused = cfg.method in ("fused_horizon", "fused_horizon_chord")
     schedule = tuple((int(s), int(n)) for s, n in schedule)
     _validate_schedule(schedule, cfg.num_steps)
     mp_fine = MatParams.from_array(mat_nd)
@@ -192,7 +195,7 @@ def solve_multiphase(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
            r1.sse, r1.err_sum)
     t_off = T1
     for S, n_fine in schedule[1:]:
-        if chord:
+        if fused:
             from ..ops.horizon_kernel import solve_coarse_phase_fused
             r = solve_coarse_phase_fused(mat_nd, n, p, e, cfg, obs, pl0,
                                          t_off, n_fine, S, kernel=kernel)

@@ -1,8 +1,11 @@
-"""The fused-horizon chord kernel: a whole fixed-dt BDF phase in one launch.
+"""The fused-horizon kernel: a whole fixed-dt BDF phase in one launch.
 
 Replaces ``horizon_kernel._kernel`` of the JAX package
 (bayesian_inference_trpl_tpu/ops/pallas/horizon_kernel.py:447-746, launched
-by ``_call`` at :761-902) in its three chord modes:
+by ``_call`` at :761-902) in its three modes, each with either Newton body
+(``HorizonParams.chord``): chord Newton (``_newton_solve_chord``, method
+``fused_horizon_chord``) or full Newton (``_newton_solve``, method
+``fused_horizon``):
 
 * stride 1 (``solve_horizon_fused``): the fine phase;
 * stride S (``solve_coarse_phase_fused``): one coarse rung of the ladder,
@@ -14,24 +17,30 @@ by ``_call`` at :761-902) in its three chord modes:
   liveness row in place of the pad-only rule.
 
 Per step, for every sample: rolling 6-slot N/P/E histories with the BDF1->5
-ramp, the extrapolated predictor with positivity fallback, chord Newton
-(a cheap residual check, then either a skip, chord iterations on a cached
-PCR factorization, or a full Jacobian refresh), the E update, and the
-fused likelihood.
+ramp, the extrapolated predictor with positivity fallback, Newton (chord:
+a cheap residual check, then either a skip, chord iterations on a cached
+PCR factorization, or a full Jacobian refresh; full: the check, then a
+Jacobian and a PCR solve on every iteration), the E update, and the fused
+likelihood.
 
 Three pieces live here:
 
 * :func:`horizon_chord` -- the wrapper.  On a CUDA tensor it launches the
-  hand-written kernel (csrc/horizon_kernel.cu, built with nvcc into a
-  plain-C shared library and called through ctypes) or raises; on a CPU
-  tensor it runs the plain version.
+  hand-written kernel (csrc/horizon_kernel.cu, built by ops/kernel_lib.py
+  into a plain-C shared library and called through ctypes) or raises; on a
+  CPU tensor it runs the plain version.
 * :func:`horizon_chord_plain` -- the plain PyTorch version of the same
   function: a Python step loop over models/newton.py and
   ops/block_tridiag.py.  Its ``group`` argument sets how many samples share
   the three block-wide decisions of chord Newton (skip the step, leave the
   iteration loop, refresh the Jacobian).  The CUDA kernel runs one sample
   per thread block, so it is held to ``group=1``; the JAX kernel takes them
-  over its whole sample tile, so it is held to ``group`` = the tile.
+  over its whole sample tile, so it is held to ``group`` = the tile.  Full
+  Newton's tile-wide decisions change no sample's result, so it has no
+  group: its steps are models/solver.bdf_step with coupled Newton, the
+  step of the step loops (solve, twophase._coarse_phase,
+  offgrid._phase_offgrid), and the Newton trajectory equals theirs bit for
+  bit.
 * :func:`from_jax_inputs` and :func:`offgrid_tables_from_jax` -- turn the
   JAX package's inputs (as numpy) into this port's tensors and configs, so
   that tests feed both the same thing.
@@ -39,12 +48,7 @@ Three pieces live here:
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -52,9 +56,12 @@ import torch
 
 from ..models.newton import residuals_and_errors, residuals_and_jacobian
 from ..models.solver import (FusedObs, SolveResult, SolverConfig, _log_pl,
-                             _scalar, init_history, log_floor, pl_observable)
+                             _scalar, bdf_step, init_history, log_floor,
+                             pl_observable)
 from ..models.trpl import (BDF_TABLE, HISTORY, MatParams, SKIP_ACCEPT_FACTOR,
                            STEP_TOL_RESIDUAL_GUARD, update_e)
+from . import kernel_lib
+from .kernel_lib import check_tensor as _check
 from .block_tridiag import block_pcr_apply, block_pcr_reduce
 
 # Chord refresh policy, read from the same environment variables and with
@@ -69,16 +76,13 @@ STRICT_SETTLE_GUARD = 0.0
 STRICT_SKIP_TIGHTEN = 0.1
 
 PRED_ORDER = {"previous": 0, "linear": 1, "quadratic": 2, "geometric": 3}
+_PREDICTOR = {v: k for k, v in PRED_ORDER.items()}
 
-# Launches of the CUDA kernel per mode, counted by horizon_chord where it
-# launches; chip_smoke.py zeroes them around each main path.
-launches = {"stride_1": 0, "stride_s": 0, "offgrid": 0}
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "horizon_kernel.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "trpl_torch_kernels"
-_LIB_NAME = "libtrpl_torch_kernels.so"
-_lib = None
-build_info = {}
+# Launches of the CUDA kernel per mode and Newton body, counted by
+# horizon_chord where it launches; chip_smoke.py zeroes them around each
+# main path.
+launches = {"stride_1": 0, "stride_s": 0, "offgrid": 0,
+            "stride_1_full": 0, "stride_s_full": 0, "offgrid_full": 0}
 
 
 def _chord_knobs(cfg: SolverConfig):
@@ -106,6 +110,8 @@ class HorizonParams(NamedTuple):
     step_tol_guard: float = STEP_TOL_RESIDUAL_GUARD
     approx_inv: bool = False  # fast reciprocal + one Newton refinement
     offgrid_k: int = 0        # K > 0: off-grid mode with K slots per step
+    chord: bool = True        # chord Newton; False: full Newton (the chord
+    #                           knobs above are then unused)
 
 
 class HorizonOut(NamedTuple):
@@ -119,6 +125,7 @@ class HorizonOut(NamedTuple):
     e: torch.Tensor
     fulls: torch.Tensor       # (batch,) int32 Jacobian refreshes of the group
     execs: torch.Tensor       # (batch,) int32 executed iterations of the group
+    #                           (full Newton: both equal its)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +222,41 @@ class _Chord:
         return Nk, Pk, Ek, done, its
 
 
+def _step_inputs(t, nh, ph, eh, bdf, pred_order):
+    """(a0, bN, bP, bE, Nk, Pk) of step t in the chord body's order: the
+    BDF history sums newest first, as the JAX kernel sums them, and the
+    extrapolated initial iterate with a positivity fallback
+    (horizon_kernel.py:568-592 of the JAX package).  The full body sums in
+    models/solver.bdf_step's order instead (csrc/horizon_kernel.cu)."""
+    row = min(t, 4)
+    a0 = bdf[row, 0]
+    hist = [(t - m) % HISTORY for m in range(5)]
+    bN, bP, bE = (bdf[row, 1] * h[hist[0]] for h in (nh, ph, eh))
+    for m in range(1, 5):
+        w = bdf[row, m + 1]
+        bN = bN + w * nh[hist[m]]
+        bP = bP + w * ph[hist[m]]
+        bE = bE + w * eh[hist[m]]
+    Nk, Pk = nh[hist[0]], ph[hist[0]]
+    if pred_order:
+        ramp = float(t > 0)
+        d1n = Nk - nh[hist[1]]
+        d1p = Pk - ph[hist[1]]
+        Nx = Nk + ramp * d1n
+        Px = Pk + ramp * d1p
+        if pred_order == 2:
+            ramp2 = float(t > 1)
+            Nx = Nx + ramp2 * (d1n - (nh[hist[1]] - nh[hist[2]]))
+            Px = Px + ramp2 * (d1p - (ph[hist[1]] - ph[hist[2]]))
+        if pred_order == 3:
+            Nm, Pm = nh[hist[1]], ph[hist[1]]
+            Nx = torch.where(Nm > 0, Nk * (Nk / torch.where(Nm > 0, Nm, 1.0)), Nx)
+            Px = torch.where(Pm > 0, Pk * (Pk / torch.where(Pm > 0, Pm, 1.0)), Px)
+        Nk = torch.where(Nx > 0, Nx, Nk)
+        Pk = torch.where(Px > 0, Px, Pk)
+    return a0, bN, bP, bE, Nk, Pk
+
+
 def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
                         prm: HorizonParams, group: int = 1) -> HorizonOut:
     """Plain PyTorch version of :func:`horizon_chord`.
@@ -235,7 +277,8 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
       wtab: stride S: (3, S, 4) Lagrange table (models/twophase.py);
         off-grid: per-slot Lagrange weights (num_exp, C, 4K), laid out
         [a*K + k] (models/offgrid.build_offgrid_tables).
-      group: samples per shared chord decision (see module docstring).
+      group: samples per shared chord decision (see module docstring);
+        full Newton (``prm.chord`` False) takes its decisions per sample.
     """
     batch, L = n0.shape
     S = prm.stride
@@ -247,7 +290,11 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     log_scale = _scalar(prm.log_scale, n0)
     mv = log_floor(prm.min_val, n0.dtype)
     bdf = torch.as_tensor(BDF_TABLE, dtype=n0.dtype, device=n0.device)
-    chord = _Chord(batch, group, n0.device, prm, tol)
+    if prm.chord:
+        chord = _Chord(batch, group, n0.device, prm, tol)
+    else:
+        step_cfg = SolverConfig(num_steps=T, max_iters=prm.max_iters,
+                                predictor=_PREDICTOR[prm.pred_order])
 
     nh, ph, eh = init_history(n0, p0, e0)
     n0p0 = mp.n0 * mp.p0
@@ -271,35 +318,14 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
         lpw = [torch.zeros_like(pl00)] * 3 + [logpl(pl00)]
 
     for t in range(T):
-        row = min(t, 4)
-        a0 = bdf[row, 0]
-        hist = [(t - m) % HISTORY for m in range(5)]
-        bN, bP, bE = (bdf[row, 1] * h[hist[0]] for h in (nh, ph, eh))
-        for m in range(1, 5):
-            w = bdf[row, m + 1]
-            bN = bN + w * nh[hist[m]]
-            bP = bP + w * ph[hist[m]]
-            bE = bE + w * eh[hist[m]]
-        Nk, Pk = nh[hist[0]], ph[hist[0]]
-        if prm.pred_order:
-            ramp = float(t > 0)
-            d1n = Nk - nh[hist[1]]
-            d1p = Pk - ph[hist[1]]
-            Nx = Nk + ramp * d1n
-            Px = Pk + ramp * d1p
-            if prm.pred_order == 2:
-                ramp2 = float(t > 1)
-                Nx = Nx + ramp2 * (d1n - (nh[hist[1]] - nh[hist[2]]))
-                Px = Px + ramp2 * (d1p - (ph[hist[1]] - ph[hist[2]]))
-            if prm.pred_order == 3:
-                Nm, Pm = nh[hist[1]], ph[hist[1]]
-                Nx = torch.where(Nm > 0, Nk * (Nk / torch.where(Nm > 0, Nm, 1.0)), Nx)
-                Px = torch.where(Pm > 0, Pk * (Pk / torch.where(Pm > 0, Pm, 1.0)), Px)
-            Nk = torch.where(Nx > 0, Nx, Nk)
-            Pk = torch.where(Px > 0, Px, Pk)
-        Nn, Pn, En, done, iters = chord.step(Nk, Pk, bN, bP, bE, mp, a0, step_tol)
-        new = (t + 1) % HISTORY
-        nh[new], ph[new], eh[new] = Nn, Pn, En
+        if prm.chord:
+            a0, bN, bP, bE, Nk, Pk = _step_inputs(t, nh, ph, eh, bdf, prm.pred_order)
+            Nn, Pn, En, done, iters = chord.step(Nk, Pk, bN, bP, bE, mp, a0, step_tol)
+            new = (t + 1) % HISTORY
+            nh[new], ph[new], eh[new] = Nn, Pn, En
+        else:
+            Nn, Pn, _, iters, done = bdf_step(t, nh, ph, eh, mp, step_cfg, tol,
+                                              step_tol)
         its = its + iters
         maxit = torch.maximum(maxit, iters)
 
@@ -359,85 +385,32 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     if sse.dim() == 3:
         sse, esum = sse.sum(-1), esum.sum(-1)
     k = T % HISTORY
+    fulls, execs = ((chord._rows(chord.fulls), chord._rows(chord.execs))
+                    if prm.chord else (its, its))
     return HorizonOut(sse, esum, conv, its, maxit, nh[k], ph[k], eh[k],
-                      chord._rows(chord.fulls), chord._rows(chord.execs))
+                      fulls, execs)
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: build, load, launch
+# CUDA kernel: launch (ops/kernel_lib.py builds and loads the library)
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA horizon kernel is built at "
-                       "first use and needs the CUDA toolkit")
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile csrc/horizon_kernel.cu with nvcc into a shared library with
-    a plain C interface under build/ (no PyTorch headers, no ninja).  The
-    file name carries the source hash, so a changed source rebuilds."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _BUILD_DIR / f"{tag}-{_LIB_NAME}"
-    if out.exists():
-        build_info.update(path=str(out), seconds=0.0, cached=True)
-        return out
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=False, ptxas=proc.stderr)
-    if verbose:
-        print(proc.stderr)
-    return out
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for mode in ("stride1", "strides", "offgrid"):
-            for dt in ("f32", "f64"):
-                fn = getattr(lib, f"trpl_horizon_chord_{mode}_{dt}")
-                fn.argtypes = [vp] * 20 + [ci] * 13 + [cd] * 9 + [vp]
-                fn.restype = ci
-        lib.trpl_error_string.argtypes = [ci]
-        lib.trpl_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+_VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGTYPES = [_VP] * 20 + [_CI] * 13 + [_CD] * 9 + [_VP]
 
 
 def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
-def _check(name, x, dtype, shape, device):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device:
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
 
 def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
                   prm: HorizonParams) -> HorizonOut:
-    """One fixed-dt phase of chord Newton with the fused likelihood.
+    """One fixed-dt phase of chord or full Newton (``prm.chord``) with the
+    fused likelihood.
 
     Arguments as :func:`horizon_chord_plain`.  On CUDA tensors this launches
-    the hand-written kernel (one thread block per sample, so the chord
+    the hand-written kernel (one thread block per sample, so the Newton
     decisions are per sample); on CPU tensors it runs the plain version
     with ``group=1``, the same function.
     """
@@ -484,11 +457,11 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     ints = [torch.empty(batch, dtype=torch.int32, device=dev) for _ in range(5)]
     conv, its, maxit, fulls, execs = ints
     n, p, e = (torch.empty_like(n0) for _ in range(3))
-    lib = _library()
     mode, sym = (("offgrid", "offgrid") if K else ("stride_1", "stride1") if S == 1
-                  else ("stride_s", "strides"))
-    fn = getattr(lib, "trpl_horizon_chord_{}_{}".format(
-        sym, "f32" if dtype == torch.float32 else "f64"))
+                 else ("stride_s", "strides"))
+    fn = kernel_lib.function("trpl_horizon_{}_{}_{}".format(
+        "chord" if prm.chord else "full", sym,
+        "f32" if dtype == torch.float32 else "f64"), _ARGTYPES)
     rc = fn(_ptr(mat), _ptr(n0), _ptr(p0), _ptr(e0), _ptr(obs), _ptr(msk),
             _ptr(vmask), _ptr(pl0), _ptr(wtab), _ptr(bdf),
             _ptr(sse), _ptr(esum), _ptr(conv), _ptr(its), _ptr(maxit),
@@ -501,10 +474,8 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             float(prm.skip_accept_factor), float(prm.skip_tighten),
             float(prm.stall), float(prm.step_tol_guard),
             torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"horizon kernel launch failed: CUDA error {rc} "
-                           f"({lib.trpl_error_string(rc).decode()})")
-    launches[mode] += 1
+    kernel_lib.check(rc, "horizon kernel")
+    launches[mode if prm.chord else mode + "_full"] += 1
     return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs)
 
 
@@ -514,14 +485,19 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
 # ---------------------------------------------------------------------------
 
 def _params(cfg: SolverConfig, obs: FusedObs, stride: int, log_scale: float):
-    settle_guard, skip_tighten, stall = _chord_knobs(cfg)
+    """The launch's scalars; ``fused_horizon`` takes full Newton, every
+    other method chord Newton under cfg's chord profile."""
+    chord = cfg.method != "fused_horizon"
+    settle_guard, skip_tighten, stall = (_chord_knobs(cfg) if chord
+                                         else (0.0, 1.0, 0.0))
     return HorizonParams(
         stride=stride, tol=cfg.tol,
         step_tol=0.0 if cfg.step_tol is None else float(cfg.step_tol),
         log_scale=0.0 if obs.normalize else log_scale,
         min_val=obs.min_val, max_iters=int(cfg.max_iters),
         normalize=bool(obs.normalize), pred_order=PRED_ORDER[cfg.predictor],
-        settle_guard=settle_guard, skip_tighten=skip_tighten, stall=stall)
+        settle_guard=settle_guard, skip_tighten=skip_tighten, stall=stall,
+        chord=chord)
 
 
 def _result(out: HorizonOut, sse, esum) -> SolveResult:
@@ -533,8 +509,9 @@ def _result(out: HorizonOut, sse, esum) -> SolveResult:
 
 def solve_horizon_fused(mat_nd, n_init, p_init, cfg: SolverConfig,
                         obs: FusedObs, e_init=None, kernel=None) -> SolveResult:
-    """Fused full-horizon chord solve + likelihood over cfg.num_steps fine
-    steps; obs.values is (num_exp, T+1).  The kernel owns steps 1..T and
+    """Fused full-horizon solve (chord, or full Newton for method
+    ``fused_horizon``) + likelihood over cfg.num_steps fine steps;
+    obs.values is (num_exp, T+1).  The kernel owns steps 1..T and
     this function adds the t=0 observation term."""
     kernel = horizon_chord if kernel is None else kernel
     T = cfg.num_steps

@@ -183,6 +183,16 @@ def bucket_horizons(plans, logger=None):
     return out
 
 
+# What each solver method's solve goes through (models/solver.py,
+# models/twophase.py, models/offgrid.py), for the run log.
+SOLVER_ROUTES = {
+    "fused_horizon_chord": "horizon kernel, chord Newton, one launch per phase",
+    "fused_horizon": "horizon kernel, full Newton, one launch per phase",
+    "coupled_newton_pallas": "per-step Newton kernel, one launch per BDF step",
+    "coupled_newton": "coupled-Newton step loop, no kernel",
+}
+
+
 def _check_supported(cfg: InferenceConfig):
     """Raise on the branches of the JAX pipeline this port does not carry
     yet, naming the ROADMAP item of each."""
@@ -304,6 +314,9 @@ def bayes(cfg: InferenceConfig, logger: Optional[logging.Logger] = None,
     if logger:
         logger.info("Initialized %d random samples", len(X))
 
+    if logger:
+        logger.info("Solver method %s: %s", cfg.grid.method,
+                    SOLVER_ROUTES[cfg.grid.method])
     runner = Runner(chunk=cfg.device.chunk_per_device, device=device)
     ckpt = None
     if cfg.checkpoint and cfg.paths.out_dirs:

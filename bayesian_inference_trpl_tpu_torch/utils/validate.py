@@ -35,11 +35,11 @@ def validate_params(num_params: int, unit_conversions, do_log, min_x, max_x):
         raise ValueError("min params larger than max params")
 
 
-SOLVER_METHODS = ("coupled_newton", "fused_horizon_chord")
+SOLVER_METHODS = ("coupled_newton", "coupled_newton_pallas", "fused_horizon",
+                  "fused_horizon_chord")
 # Methods of the JAX package that the port does not carry yet, with the
 # ROADMAP item that brings each.
-UNPORTED_METHODS = {"gauss_seidel": "A13", "fused_horizon": "B4",
-                    "coupled_newton_pallas": "B5"}
+UNPORTED_METHODS = {"gauss_seidel": "A13"}
 PREDICTORS = ("previous", "linear", "quadratic", "geometric")
 
 

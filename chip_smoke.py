@@ -4,25 +4,39 @@
 
 Phases, each printed on its own line with its seconds:
 
-1. build   -- nvcc builds csrc/horizon_kernel.cu into build/ (plain C
-              interface, loaded with ctypes).
-2. compare -- the horizon kernel against its plain PyTorch version
-              (group=1), on the card, on the same inputs, at main-path
-              shapes: a seeded sample box, one curve, the full power_scan
-              ladder (256 fine steps, then strides 16/32/64 x 512).
-              float64 at 64 samples: conv, its and fulls equal, sse/esum
-              within 1e-9 relative.  float32 at 1024 samples (the chunk):
-              see F32_* below.  The kernel and plain times at chunk 1024
-              come from this phase (CUDA events).
+1. build   -- nvcc builds csrc/*.cu (the horizon kernel and the per-step
+              Newton kernel, one nvcc each, in parallel) into one library
+              under build/ (plain C interface, loaded with ctypes).
+2. compare -- the horizon kernel's chord body against its plain PyTorch
+              version (group=1), on the card, on the same inputs: a seeded
+              sample box, one curve of the power_scan configuration.  The
+              plain version is a host-bound Python step loop, so both run
+              a shortened ladder (256 fine steps, then 64 coarse steps at
+              each of the strides 16/32/64).  float64 at 64 samples: conv,
+              its, fulls and execs equal, sse/esum within 1e-9 relative.
+              float32 at 1024 samples (the chunk): see F32_* below.  Then
+              the kernel alone on the full ladder (256 fine steps, then
+              strides 16/32/64 x 512, the last rung 862), timed per launch
+              by CUDA events at chunk 1024: the times in the kernel line.
 3. main    -- ``python -m bayesian_inference_trpl_tpu_torch.run`` on a TOML
               written into a temp dir: power_scan's [grid], [params] and
               [device], synthetic data for 3 excitation curves, a reduced
               num_points.  Counts every kernel launch and checks the output.
 4. compare_offgrid -- as 2, for the kernel's off-grid mode: the same
-              ladder scored at ~400 log-spaced observation times (slot
+              ladders scored at ~400 log-spaced observation times (slot
               tables, models/offgrid.py), every phase one off-grid launch.
 5. main_offgrid -- as 3, with the observations at those log-spaced times
               (examples/power_scan_offgrid.toml's configuration).
+6. compare_full, compare_full_offgrid -- as 2 and 4 for the full-Newton
+              body (method fused_horizon).
+7. main_full, main_full_offgrid -- as 3 and 5 with method fused_horizon.
+8. compare_newton_step -- the per-step Newton kernel against
+              coupled_newton_step on the recorded inputs of steps from
+              every phase of a coupled_newton_pallas run of the shortened
+              ladder, float64 and float32 at 1024 samples; its time per
+              launch by CUDA events.
+9. main_newton_step -- as 3 with method coupled_newton_pallas: one launch
+              of the per-step kernel per BDF step.
 
 Then one JSON line describing every kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  Any failure
@@ -54,9 +68,14 @@ import torch
 #             residual re-check 90;
 #   per Jacobian refresh: Jacobian blocks 70, PCR reduce 600 (6 sweeps of 96
 #             + final pair 22).
+#   full Newton (method fused_horizon) refreshes on every iteration: its
+#             fulls and execs both count each iteration.
 OPS_STEP = 27 + 16 + 12 + 2 + 90
 OPS_ITER = 110 + 18 + 90
 OPS_FULL = 70 + 600
+# The per-step Newton kernel, per cell and launch: the residual check 90 and
+# the E update 12, plus OPS_ITER + OPS_FULL per iteration.
+OPS_NEWTON_CALL = 90 + 12
 # Off-grid slot scoring, per slot and step (not per cell): window sum 7,
 # error 1, weighted sums 5.
 OPS_SLOT = 13
@@ -84,6 +103,8 @@ DO_LOG = [1, 1, 0, 0, 1, 1, 1, 1, 1, 0, 0, 1, 0]
 # Off-grid observations: t = 0 plus this many log-spaced times from
 # 0.7 dt to the horizon (examples/power_scan_offgrid.toml: ~400 per curve).
 OFFGRID_POINTS = 400
+# Coarse steps per rung in the plain comparisons (the shortened ladder).
+SHORT_RUNG_STEPS = 64
 
 
 def phase(name, t0, msg):
@@ -149,17 +170,39 @@ class Recorder:
         return out
 
 
-def ladder_inputs(num, dtype, seed, offgrid=False):
-    """One curve of the power_scan configuration at ``num`` samples; with
-    ``offgrid`` its observations at the log-spaced times, as slot tables."""
+def ladder_schedule(short):
+    """(T, schedule) of the power_scan ladder (256 fine steps, then strides
+    16/32/64 x 512, the last rung 862 steps), or of the shortened ladder of
+    the plain comparisons (the same fine phase and strides, SHORT_RUNG_STEPS
+    coarse steps per rung, the same dt)."""
+    from bayesian_inference_trpl_tpu_torch.models.twophase import geometric_schedule
+    g = POWER_SCAN
+    if not short:
+        return g["T"], geometric_schedule(
+            g["T"], g["fast_fine_steps"], base_stride=g["fast_coarse_stride"],
+            coarse_steps_per_phase=g["fast_steps_per_phase"],
+            max_stride=g["fast_max_stride"])
+    sched = ((1, g["fast_fine_steps"]),) + tuple(
+        (s, s * SHORT_RUNG_STEPS) for s in (16, 32, 64))
+    return sum(n for _, n in sched), sched
+
+
+def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
+                  short=False):
+    """One curve of the power_scan configuration at ``num`` samples, on the
+    full or the shortened ladder; with ``offgrid`` its observations at the
+    log-spaced times, as slot tables.  Returns run(kernel), which solves it
+    with ``method`` and the given horizon-kernel entry."""
     from bayesian_inference_trpl_tpu_torch import physics
     from bayesian_inference_trpl_tpu_torch.models.driver import SimParams, pl_log_scale
     from bayesian_inference_trpl_tpu_torch.models.solver import FusedObs
     from bayesian_inference_trpl_tpu_torch.utils import sampling
     g = POWER_SCAN
-    sim = SimParams(length=g["thickness"], time=g["time"], L=g["L"], T=g["T"],
+    T, sched = ladder_schedule(short)
+    time_ns = g["time"] * T / g["T"]
+    sim = SimParams(length=g["thickness"], time=time_ns, L=g["L"], T=T,
                     tol_exp=g["tol_exp"], max_iters=g["max_iters"],
-                    method="fused_horizon_chord", predictor="quadratic",
+                    method=method, predictor="quadratic",
                     step_tol=g["step_tol"], fast_fine_steps=g["fast_fine_steps"],
                     fast_coarse_stride=g["fast_coarse_stride"],
                     fast_max_stride=g["fast_max_stride"],
@@ -177,26 +220,46 @@ def ladder_inputs(num, dtype, seed, offgrid=False):
     if offgrid:
         from bayesian_inference_trpl_tpu_torch.models.offgrid import (
             build_offgrid_tables, solve_offgrid)
-        t = offgrid_times(g["T"], g["time"])
-        _, curves = decay_curves(g["T"], g["time"], 1, seed, t)
-        tables = build_offgrid_tables([t], [np.log10(curves[0])], sim.fast_phases,
-                                      sim.dt)
+        t = offgrid_times(T, time_ns)
+        _, curves = decay_curves(T, time_ns, 1, seed, t)
+        tables = build_offgrid_tables([t], [np.log10(curves[0])], sched, sim.dt)
 
         def run(kernel):
             solve_offgrid(mat, n0, p0, torch.zeros_like(n0), sim.solver_config(),
-                          tables, sim.fast_phases, pl_log_scale(sim),
+                          tables, sched, pl_log_scale(sim),
                           sys.float_info.min, kernel=kernel)
         return run
     from bayesian_inference_trpl_tpu_torch.models.twophase import solve_multiphase
-    _, curves = decay_curves(g["T"], g["time"], 1, seed)
+    _, curves = decay_curves(T, time_ns, 1, seed)
     vals = torch.as_tensor(np.log10(curves[0])[None], dtype=dtype, device=dev)
     obs = FusedObs(values=vals, log_scale=pl_log_scale(sim),
                    min_val=sys.float_info.min)
 
     def run(kernel):
         solve_multiphase(mat, n0, p0, torch.zeros_like(n0), sim.solver_config(),
-                         obs, sim.fast_phases, kernel=kernel)
+                         obs, sched, kernel=kernel)
     return run
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call of ``fn`` on the card: one warm-up call,
+    then CUDA events around ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def record(prm, args, **kw):
+    return dict(stride=prm.stride, K=prm.offgrid_k, chord=prm.chord,
+                steps=args[4].shape[1], args=args,
+                label=(f"off-grid K {prm.offgrid_k:>2}" if prm.offgrid_k
+                       else f"stride {prm.stride:>2}"), **kw)
 
 
 def compare_phase(hk, run, dtype_name):
@@ -206,21 +269,24 @@ def compare_phase(hk, run, dtype_name):
     run(plain)
     recs = []
     for args, ref, plain_s in plain.calls:
-        out = hk.horizon_chord(*args)          # warm-up + comparison
+        out = hk.horizon_chord(*args)
         torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        reps = 3
-        start.record()
-        for _ in range(reps):
-            hk.horizon_chord(*args)
-        end.record()
-        torch.cuda.synchronize()
-        prm = args[-1]
-        recs.append(dict(stride=prm.stride, K=prm.offgrid_k, steps=args[4].shape[1],
-                         label=(f"off-grid K {prm.offgrid_k:>2}" if prm.offgrid_k
-                                else f"stride {prm.stride:>2}"),
-                         ref=ref, out=out, kernel_ms=start.elapsed_time(end) / reps,
-                         plain_ms=plain_s * 1e3, args=args, dtype=dtype_name))
+        recs.append(record(args[-1], args, ref=ref, out=out, plain_ms=plain_s * 1e3,
+                           dtype=dtype_name))
+    return recs
+
+
+def time_phase(hk, run):
+    """The kernel alone on every phase of the full ladder: each launch's
+    inputs recorded, then timed (warm-up + 3 launches, CUDA events)."""
+    rec = Recorder(hk.horizon_chord)
+    run(rec)
+    recs = []
+    for args, out, _ in rec.calls:
+        r = record(args[-1], args, out=out,
+                   kernel_ms=cuda_ms(lambda: hk.horizon_chord(*args), 3))
+        r["bound_ms"], r["bound_by"] = bound_ms(r, POWER_SCAN["L"], PEAK_FP32)
+        recs.append(r)
     return recs
 
 
@@ -281,9 +347,10 @@ def bound_ms(r, L, peak):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def write_main_inputs(tmp, num_points, seed, offgrid=False):
+def write_main_inputs(tmp, num_points, seed, offgrid=False, method="fused_horizon_chord"):
     """Excitations, observations (on the grid, or at the off-grid times)
-    and a TOML of the power_scan configuration, in ``tmp``."""
+    and a TOML of the power_scan configuration with the solver ``method``,
+    in ``tmp``."""
     g = POWER_SCAN
     profiles = excitation_profiles(g["L"], g["thickness"])
     exc = os.path.join(tmp, "excitations.csv")
@@ -311,7 +378,7 @@ num_steps = {g['T']}
 pl_stride = 1
 tol_exp = {g['tol_exp']}
 max_iters = {g['max_iters']}
-method = "fused_horizon_chord"
+method = "{method}"
 predictor = "quadratic"
 step_tol = {g['step_tol']}
 fast_fine_steps = {g['fast_fine_steps']}
@@ -349,13 +416,18 @@ out_dirs = ["{os.path.join(tmp, 'out', 'smoke')}"]
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--num-points", type=int, default=32768,
-                    help="samples of the main-path run (power_scan: 131072)")
+                    help="samples of the chord and full-Newton main paths "
+                         "(power_scan: 131072); the full-Newton off-grid path "
+                         "takes a quarter, the per-step kernel's path an eighth")
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args()
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    from bayesian_inference_trpl_tpu_torch.models import solver
     from bayesian_inference_trpl_tpu_torch.ops import horizon_kernel as hk
+    from bayesian_inference_trpl_tpu_torch.ops import kernel_lib
+    from bayesian_inference_trpl_tpu_torch.ops import newton_kernel as nk
     from bayesian_inference_trpl_tpu_torch.run import main as run_main
     from bayesian_inference_trpl_tpu_torch.utils import io as bio
 
@@ -366,43 +438,63 @@ def main():
 
     # 1. build
     t0 = time.perf_counter()
-    lib = hk.build_library()
-    ptx = [ln.strip() for ln in hk.build_info.get("ptxas", "").splitlines()
-           if "registers" in ln or "Compiling entry" in ln]
-    phase("build", t0, f"nvcc {hk.build_info['seconds']:.2f} s -> "
+    lib = kernel_lib.build_library()
+    ptx = [ln.strip() for ln in kernel_lib.build_info.get("ptxas", "").splitlines()
+           if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    phase("build", t0, f"nvcc {kernel_lib.build_info['seconds']:.2f} s -> "
           f"{os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))}")
     for ln in ptx:
         print(f"  ptxas: {ln}")
 
-    # 2. kernel vs plain, on-grid modes
-    err64 = {}
-    recs32 = {}
-    compare_modes(hk, "", args.seed, err64, recs32)
-
-    # 3. on-grid main path through the port's CLI
-    counts = {}
-    main_path(hk, run_main, bio, args, "", ("stride_1", "stride_s"), counts,
-              {"stride_1": 1, "stride_s": 3})
-
-    # 4-5. the off-grid mode and path
-    compare_modes(hk, "offgrid", args.seed, err64, recs32)
-    main_path(hk, run_main, bio, args, "offgrid", ("offgrid",), counts,
-              {"offgrid": 4})
+    err64, plain32, timing, counts = {}, {}, {}, {}
+    paths = MainPaths(hk, nk, run_main, bio, args, counts)
+    n_main = args.num_points
+    # Launches per chunk and curve: one per phase of the ladder, or one per
+    # BDF step (2,142 for power_scan).
+    sched = ladder_schedule(False)[1]
+    rungs, steps = len(sched) - 1, sum(n // s for s, n in sched)
+    # 2-5. chord Newton: the on-grid modes and path, then the off-grid ones
+    compare_modes(hk, "", "fused_horizon_chord", args.seed, err64, plain32, timing)
+    paths.run("", "fused_horizon_chord", n_main, {"stride_1": 1, "stride_s": rungs})
+    compare_modes(hk, "offgrid", "fused_horizon_chord", args.seed, err64, plain32, timing)
+    paths.run("offgrid", "fused_horizon_chord", n_main, {"offgrid": rungs + 1})
+    # 6-7. full Newton (fused_horizon), on-grid and off-grid
+    compare_modes(hk, "", "fused_horizon", args.seed, err64, plain32, timing)
+    paths.run("", "fused_horizon", n_main, {"stride_1_full": 1, "stride_s_full": rungs})
+    compare_modes(hk, "offgrid", "fused_horizon", args.seed, err64, plain32, timing)
+    paths.run("offgrid", "fused_horizon", n_main // 4, {"offgrid_full": rungs + 1})
+    # 8-9. the per-step Newton kernel (coupled_newton_pallas)
+    compare_newton_step(nk, solver, args.seed, err64, plain32, timing)
+    walls = paths.run("", "coupled_newton_pallas", n_main // 8, {"newton_step": steps})
+    step_wall_ms = 1e3 * walls / counts["newton_step"]
+    step_kernel_ms = float(np.mean([r["kernel_ms"] for r in timing["newton_step"]]))
+    print(f"  main_newton_step: wall per BDF step {step_wall_ms:.4f} ms = kernel "
+          f"{step_kernel_ms:.4f} ms (CUDA events at chunk 1024, float32) + host and "
+          f"launch {step_wall_ms - step_kernel_ms:.4f} ms")
 
     def entry(mode):
-        sel = recs32[mode]
+        t, p = timing[mode], plain32[mode]
+        if mode == "newton_step":
+            ident = dict(name="newton_step", source="bayesian_inference_trpl_tpu_torch/"
+                         "csrc/newton_kernel.cu",
+                         replaces="bayesian_inference_trpl_tpu/ops/pallas/newton_kernel.py:92")
+        else:
+            body = "full" if mode.endswith("_full") else "chord"
+            ident = dict(name=f"horizon_{body}_{mode.replace('_full', '')}",
+                         source="bayesian_inference_trpl_tpu_torch/csrc/horizon_kernel.cu",
+                         replaces="bayesian_inference_trpl_tpu/ops/pallas/horizon_kernel.py:887")
         return dict(
-            name=f"horizon_chord_{mode}", route="cuda",
-            source="bayesian_inference_trpl_tpu_torch/csrc/horizon_kernel.cu",
-            replaces="bayesian_inference_trpl_tpu/ops/pallas/horizon_kernel.py:887",
-            launches=counts[mode],
-            max_abs_err=err64[mode],
-            ms=float(np.mean([r["kernel_ms"] for r in sel])),
-            plain_ms=float(np.mean([r["plain_ms"] for r in sel])),
-            bound_ms=float(np.mean([r["bound_ms"] for r in sel])),
-            bound_by=sel[0]["bound_by"], library_ms=None)
+            ident, route="cuda", launches=counts[mode], max_abs_err=err64[mode],
+            ms=float(np.mean([r["kernel_ms"] for r in t])),
+            plain_ms=float(np.mean([r["plain_ms"] for r in p])),
+            bound_ms=float(np.mean([r["bound_ms"] for r in t])),
+            bound_by=t[0]["bound_by"], library_ms=None,
+            steps=float(np.mean([r["steps"] for r in t])),
+            plain_steps=float(np.mean([r["steps"] for r in p])))
 
-    print(json.dumps({"kernels": [entry(m) for m in ("stride_1", "stride_s", "offgrid")]}))
+    print(json.dumps({"kernels": [entry(m) for m in (
+        "stride_1", "stride_s", "offgrid", "stride_1_full", "stride_s_full",
+        "offgrid_full", "newton_step")]}))
     phase("total", t_all, "")
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -410,16 +502,20 @@ def main():
 
 
 def mode_of(r):
-    return "offgrid" if r["K"] else "stride_1" if r["stride"] == 1 else "stride_s"
+    mode = "offgrid" if r["K"] else "stride_1" if r["stride"] == 1 else "stride_s"
+    return mode if r["chord"] else mode + "_full"
 
 
-def compare_modes(hk, kind, seed, err64, recs32):
-    """Kernel vs plain in float64 (64 samples) and float32 (the chunk,
-    1024 samples) over the full ladder, on-grid (kind "") or off-grid."""
+def compare_modes(hk, kind, method, seed, err64, plain32, timing):
+    """Kernel vs plain in float64 (64 samples) and float32 (the chunk, 1024
+    samples) on the shortened ladder, then the kernel alone on the full
+    ladder at the chunk, timed; on-grid (kind "") or off-grid, chord or
+    full Newton (``method``)."""
     offgrid = kind == "offgrid"
-    suffix = "_offgrid" if offgrid else ""
+    suffix = ("_full" if method == "fused_horizon" else "") + ("_offgrid" if offgrid else "")
     t0 = time.perf_counter()
-    for r in compare_phase(hk, ladder_inputs(64, torch.float64, seed, offgrid), "f64"):
+    run = ladder_inputs(64, torch.float64, seed, offgrid, method, short=True)
+    for r in compare_phase(hk, run, "f64"):
         e, srel = check_f64(r)
         err64[mode_of(r)] = max(err64.get(mode_of(r), 0.0), e)
         print(f"  f64 {r['label']} x {r['steps']} steps, 64 samples: "
@@ -430,64 +526,168 @@ def compare_modes(hk, kind, seed, err64, recs32):
     phase(f"compare{suffix}_f64", t0, f"kernel == plain(group=1) within {F64_RTOL} relative")
 
     t0 = time.perf_counter()
-    for r in compare_phase(hk, ladder_inputs(1024, torch.float32, seed, offgrid), "f32"):
+    run = ladder_inputs(1024, torch.float32, seed, offgrid, method, short=True)
+    for r in compare_phase(hk, run, "f32"):
         conv_eq, within, rmax, amax = check_f32(r)
-        b_ms, b_by = bound_ms(r, POWER_SCAN["L"], PEAK_FP32)
-        r.update(bound_ms=b_ms, bound_by=b_by, abs_err=amax)
-        recs32.setdefault(mode_of(r), []).append(r)
+        plain32.setdefault(mode_of(r), []).append(r)
         print(f"  f32 {r['label']} x {r['steps']} steps, 1024 samples: "
               f"conv equal {conv_eq:.4f}, sse within {F32_RTOL}: {within:.4f} "
               f"(max rel {rmax:.2e}), final N/P max rel diff "
-              f"{state_rel(r['out'], r['ref']):.1e}; kernel {r['kernel_ms']:.3f} ms, "
-              f"plain {r['plain_ms']:.1f} ms, bound {b_ms:.4f} ms ({b_by}, "
-              f"{100 * b_ms / r['kernel_ms']:.1f}% of it reached); "
+              f"{state_rel(r['out'], r['ref']):.1e}; plain {r['plain_ms']:.1f} ms; "
               f"its/sample {float(r['out'].its.float().mean()):.1f}, "
               f"execs/sample {float(r['out'].execs.float().mean()):.1f}, "
               f"fulls/sample {float(r['out'].fulls.float().mean()):.1f}")
     phase(f"compare{suffix}_f32", t0, "kernel vs plain(group=1) at chunk 1024")
 
-
-def main_path(hk, run_main, bio, args, kind, modes, counts, per_chunk_curve):
-    """The port's CLI on synthetic data; the launch counts are zeroed just
-    before the run and read just after.  Every kernel of the path must
-    have launched, and no other."""
-    suffix = "_offgrid" if kind else ""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
-        cfg_path = write_main_inputs(tmp, args.num_points, args.seed, bool(kind))
-        print(f"  main{suffix} path: num_points reduced 131072 -> {args.num_points}; "
-              f"3 curves x 80000 steps; chunk 1024; float32"
-              + (f"; t = 0 plus {OFFGRID_POINTS} log-spaced times per curve" if kind else ""),
-              flush=True)
-        phase(f"main{suffix}_inputs", t0, f"synthetic data and TOML in {tmp}")
-        for k in hk.launches:
-            hk.launches[k] = 0
+    for r in time_phase(hk, ladder_inputs(1024, torch.float32, seed, offgrid, method)):
+        timing.setdefault(mode_of(r), []).append(r)
+        out = r["out"]
+        print(f"  kernel f32 {r['label']} x {r['steps']} steps, 1024 samples: "
+              f"{r['kernel_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{100 * r['bound_ms'] / r['kernel_ms']:.1f}% of it reached); "
+              f"conv {int(out.conv.sum())}/1024, its/sample {float(out.its.float().mean()):.1f}, "
+              f"fulls/sample {float(out.fulls.float().mean()):.1f}")
+    phase(f"time{suffix}", t0, "kernel per launch on the full ladder at chunk 1024")
+
+
+def compare_newton_step(nk, solver, seed, err64, plain32, timing):
+    """The per-step kernel against coupled_newton_step on the recorded
+    inputs of steps from every phase of the shortened ladder, run with
+    coupled_newton_pallas (float64 and float32, 1024 samples)."""
+    from bayesian_inference_trpl_tpu_torch.models.newton import coupled_newton_step
+    T1 = POWER_SCAN["fast_fine_steps"]
+    starts = [0, T1] + [T1 + k * SHORT_RUNG_STEPS for k in (1, 2)]
+    picks = sorted({s + o for s in starts for o in (0, 1, 2, 5, 40)}
+                   | {T1 - 1, T1 + 3 * SHORT_RUNG_STEPS - 1})
+    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
         t0 = time.perf_counter()
-        rc = run_main([cfg_path, "--log-dir", os.path.join(tmp, "Logs")])
-        torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
-        run_counts = dict(hk.launches)
-        logging.getLogger("bayes-trpl-torch").handlers.clear()
-        if rc != 0:
-            raise RuntimeError(f"run.main returned {rc}")
-        P, X = bio.load_bayran(os.path.join(tmp, "out", "smoke"))
-    if P.shape != (args.num_points,) or X.shape != (args.num_points, 13):
-        raise AssertionError(f"BAYRAN shapes {P.shape} {X.shape}")
-    finite = float(np.isfinite(P).mean())
-    sims_per_min = 3 * args.num_points / main_s * 60.0
-    phase(f"main{suffix}", t0, f"{args.num_points} samples x 3 curves; {sims_per_min:.0f} "
-          f"sims/min; finite share of P {finite:.4f}; launches {run_counts}")
-    if finite < 0.99:
-        raise AssertionError(f"finite share of P {finite:.4f} < 0.99")
-    chunk_curves = 3 * -(-args.num_points // 1024)
-    for k, v in run_counts.items():
-        want = per_chunk_curve.get(k, 0) * chunk_curves
-        if v != want:
-            raise AssertionError(f"main{suffix} path launched the {k} kernel {v} times, "
-                                 f"expected {want}")
-    print(f"  launches as expected: {', '.join(f'{per_chunk_curve[k]} {k}' for k in modes)} "
-          f"per chunk per curve, {chunk_curves} chunk-curves")
-    counts.update({k: run_counts[k] for k in modes})
+        steps, seen = [], [0]
+        orig = solver.newton_step
+
+        def rec(*a, **kw):
+            if seen[0] in picks:
+                steps.append((seen[0], tuple(x.clone() if isinstance(x, torch.Tensor)
+                                             else x for x in a[:5]) + a[5:], dict(kw)))
+            seen[0] += 1
+            return orig(*a, **kw)
+        solver.newton_step = rec
+        try:
+            ladder_inputs(1024, dtype, seed, method="coupled_newton_pallas", short=True)(None)
+        finally:
+            solver.newton_step = orig
+        assert seen[0] == T1 + 3 * SHORT_RUNG_STEPS, seen[0]
+        worst = 0.0
+        for idx, a, kw in steps:
+            out = nk.newton_step(*a, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref = coupled_newton_step(*a, **kw)
+            torch.cuda.synchronize()
+            r = dict(steps=1, out=out, ref=ref, plain_ms=1e3 * (time.perf_counter() - t1),
+                     kernel_ms=cuda_ms(lambda: nk.newton_step(*a, **kw), 20))
+            its, conv = out[3], out[4]
+            L = out[0].shape[1]
+            ops = L * (its.numel() * OPS_NEWTON_CALL
+                       + float(its.double().sum()) * (OPS_ITER + OPS_FULL))
+            es = out[0].element_size()
+            nbytes = 8 * out[0].numel() * es + 12 * its.numel() * es + 8 * its.numel() + 3 * es
+            t_ops, t_bytes = ops / PEAK_FP32, nbytes / HBM_BYTES_PER_S
+            r["bound_ms"] = max(t_ops, t_bytes) * 1e3
+            r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            if tag == "f64":
+                if not (torch.equal(its, ref[3]) and torch.equal(conv, ref[4])):
+                    raise AssertionError(f"f64 newton_step at step {idx}: its/conv differ")
+                for x, y in zip(out[:2], ref[:2]):
+                    rel = float(((x - y).abs() / y.abs().clamp_min(1e-300)).max())
+                    if rel > F64_RTOL:
+                        raise AssertionError(f"f64 newton_step at step {idx}: N/P rel "
+                                             f"{rel:.3e} > {F64_RTOL}")
+                    worst = max(worst, float((x - y).abs().max()))
+                escale = ref[2].abs().amax(1, keepdim=True).clamp_min(1e-300)
+                erel = float(((out[2] - ref[2]).abs() / escale).max())
+                if erel > F64_RTOL:
+                    raise AssertionError(f"f64 newton_step at step {idx}: E error "
+                                         f"{erel:.3e} of its scale > {F64_RTOL}")
+                err64["newton_step"] = max(err64.get("newton_step", 0.0), worst)
+                msg = f"its/conv equal, N/P max abs err {worst:.3e}, E {erel:.1e} of scale"
+            else:
+                conv_eq = float((conv == ref[4]).float().mean())
+                both = conv & ref[4]
+                rel = torch.maximum(*[((x - y).abs() / y.abs().clamp_min(1e-30)).amax(1)
+                                      for x, y in zip(out[:2], ref[:2])])[both]
+                within = float((rel <= F32_RTOL).float().mean()) if rel.numel() else 1.0
+                if conv_eq < F32_MIN_SHARE or within < F32_MIN_SHARE:
+                    raise AssertionError(f"f32 newton_step at step {idx}: conv equal on "
+                                         f"{conv_eq:.4f}, N/P within {F32_RTOL} on {within:.4f}")
+                plain32.setdefault("newton_step", []).append(r)
+                timing.setdefault("newton_step", []).append(r)
+                msg = (f"conv equal {conv_eq:.4f}, N/P within {F32_RTOL}: {within:.4f}; "
+                       f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                       f"{100 * r['bound_ms'] / r['kernel_ms']:.1f}% of it reached)")
+            print(f"  {tag} newton_step at step {idx}, 1024 samples: {msg}; kernel "
+                  f"{r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms; its/sample "
+                  f"{float(its.float().mean()):.2f}, conv {int(conv.sum())}/1024")
+        phase(f"compare_newton_step_{tag}", t0,
+              f"per-step kernel vs coupled_newton_step on {len(steps)} recorded steps")
+
+
+class MainPaths:
+    """The port's CLI on synthetic data, one path per call; the launch
+    counts are zeroed just before the run and read just after.  Every
+    kernel of the path must have launched exactly as expected, and no
+    other."""
+
+    def __init__(self, hk, nk, run_main, bio, args, counts):
+        self.hk, self.nk, self.run_main, self.bio = hk, nk, run_main, bio
+        self.seed, self.counts = args.seed, counts
+
+    def launches(self):
+        return dict(self.hk.launches, newton_step=self.nk.launches)
+
+    def run(self, kind, method, num_points, per_chunk_curve):
+        """Returns the run's wall seconds."""
+        suffix = {"fused_horizon_chord": "", "fused_horizon": "_full",
+                  "coupled_newton_pallas": "_newton_step"}[method] + (
+                      "_offgrid" if kind else "")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
+            cfg_path = write_main_inputs(tmp, num_points, self.seed, bool(kind), method)
+            print(f"  main{suffix} path: method {method}; num_points reduced 131072 -> "
+                  f"{num_points}; 3 curves x {POWER_SCAN['T']} steps; chunk 1024; float32"
+                  + (f"; t = 0 plus {OFFGRID_POINTS} log-spaced times per curve"
+                     if kind else ""), flush=True)
+            phase(f"main{suffix}_inputs", t0, f"synthetic data and TOML in {tmp}")
+            for k in self.hk.launches:
+                self.hk.launches[k] = 0
+            self.nk.launches = 0
+            t0 = time.perf_counter()
+            rc = self.run_main([cfg_path, "--log-dir", os.path.join(tmp, "Logs")])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            run_counts = self.launches()
+            logging.getLogger("bayes-trpl-torch").handlers.clear()
+            if rc != 0:
+                raise RuntimeError(f"run.main returned {rc}")
+            P, X = self.bio.load_bayran(os.path.join(tmp, "out", "smoke"))
+        if P.shape != (num_points,) or X.shape != (num_points, 13):
+            raise AssertionError(f"BAYRAN shapes {P.shape} {X.shape}")
+        finite = float(np.isfinite(P).mean())
+        sims_per_min = 3 * num_points / main_s * 60.0
+        phase(f"main{suffix}", t0, f"{num_points} samples x 3 curves; {sims_per_min:.0f} "
+              f"sims/min; finite share of P {finite:.4f}; launches {run_counts}")
+        if finite < 0.99:
+            raise AssertionError(f"finite share of P {finite:.4f} < 0.99")
+        chunk_curves = 3 * -(-num_points // 1024)
+        for k, v in run_counts.items():
+            want = per_chunk_curve.get(k, 0) * chunk_curves
+            if v != want:
+                raise AssertionError(f"main{suffix} path launched the {k} kernel {v} "
+                                     f"times, expected {want}")
+        print(f"  launches as expected: {', '.join(f'{v} {k}' for k, v in per_chunk_curve.items())} "
+              f"per chunk per curve, {chunk_curves} chunk-curves")
+        self.counts.update({k: run_counts[k] for k in per_chunk_curve})
+        return main_s
 
 
 if __name__ == "__main__":

@@ -1,4 +1,6 @@
-"""The CUDA horizon kernel against its plain PyTorch version on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+horizon kernel (chord and full Newton, every mode) and the per-step Newton
+kernel.
 
 Needs an NVIDIA GPU and skips without one.  The file imports neither JAX
 nor the JAX package, so it also runs where JAX is absent:
@@ -13,9 +15,12 @@ from bayesian_inference_trpl_tpu_torch import physics
 from bayesian_inference_trpl_tpu_torch.models import offgrid
 from bayesian_inference_trpl_tpu_torch.models.driver import (
     SimParams, initial_excess_density, pl_log_scale)
+from bayesian_inference_trpl_tpu_torch.models import solver
+from bayesian_inference_trpl_tpu_torch.models.newton import coupled_newton_step
 from bayesian_inference_trpl_tpu_torch.models.solver import FusedObs, SolverConfig
 from bayesian_inference_trpl_tpu_torch.models.twophase import solve_multiphase
 from bayesian_inference_trpl_tpu_torch.ops import horizon_kernel as hk
+from bayesian_inference_trpl_tpu_torch.ops import newton_kernel as nk
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -28,7 +33,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _problem(device, dtype, B=8, T=36 + 2 * 64, seed=0):
+def _problem(device, dtype, B=8, T=36 + 2 * 64, seed=0, method="fused_horizon_chord",
+             normalize=False):
     rng = np.random.default_rng(seed)
     lo = np.array([1e8, 1e14, 1.0, 1.0, 1e-11, 1e0, 1e0, 1e-30, 1e-30, 20.0, 20.0, 1e-1])
     hi = np.array([1e8, 1e16, 50.0, 50.0, 1e-9, 1e2, 1e2, 1e-28, 1e-28, 1000.0, 2000.0, 1e1])
@@ -47,9 +53,10 @@ def _problem(device, dtype, B=8, T=36 + 2 * 64, seed=0):
     mask[1, -20:] = 0.0
     obs = FusedObs(values=torch.as_tensor(rng.uniform(-4, -2, (2, T + 1)),
                                           dtype=dtype, device=device),
-                   log_scale=pl_log_scale(sim), min_val=1e-300, mask=mask)
+                   log_scale=pl_log_scale(sim), min_val=1e-300, mask=mask,
+                   normalize=normalize)
     cfg = SolverConfig(num_steps=T, tol=1e-8 if dtype == torch.float64 else 1e-4,
-                       max_iters=8, step_tol=1e-6, method="fused_horizon_chord",
+                       max_iters=8, step_tol=1e-6, method=method,
                        predictor="quadratic")
     return mat, n0, p0, torch.zeros_like(n0), obs, cfg
 
@@ -78,12 +85,47 @@ def test_kernel_matches_plain_both_modes(cuda_device):
     assert hk.launches["stride_s"] - before["stride_s"] == 2
 
 
+def _check_phase(out, ref):
+    for name in ("conv", "its", "maxit", "fulls", "execs"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    torch.testing.assert_close(out.sse, ref.sse, rtol=1e-9, atol=0.0)
+    torch.testing.assert_close(out.esum, ref.esum, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(out.n, ref.n, rtol=1e-9, atol=0.0)
+
+
 @pytest.mark.parametrize("normalize", [False, True])
-def test_offgrid_kernel_matches_plain(cuda_device, normalize):
-    """The off-grid mode on a sigma-weighted log-spaced ladder (stride 1, 8,
+def test_full_kernel_matches_plain(cuda_device, normalize):
+    """Full Newton (method fused_horizon) on a masked ladder (stride 1, 8,
     16), float64: conv, its, fulls and execs equal; sse and esum within
-    1e-9 relative; one launch per phase."""
-    mat, n0, p0, e0, _, cfg = _problem(cuda_device, torch.float64)
+    1e-9 relative; one stride-1 and two stride-S full launches."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, torch.float64,
+                                         method="fused_horizon", normalize=normalize)
+    calls = []
+
+    def rec(*args):
+        calls.append((args, hk.horizon_chord_plain(*args)))
+        return calls[-1][1]
+    solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 64), (16, 64)),
+                     kernel=rec)
+    before = dict(hk.launches)
+    for args, ref in calls:
+        assert not args[-1].chord
+        out = hk.horizon_chord(*args)
+        torch.cuda.synchronize()
+        _check_phase(out, ref)
+    assert ref.conv.any()
+    assert hk.launches["stride_1_full"] - before["stride_1_full"] == 1
+    assert hk.launches["stride_s_full"] - before["stride_s_full"] == 2
+    assert hk.launches["stride_1"] == before["stride_1"]
+
+
+@pytest.mark.parametrize("method", ["fused_horizon_chord", "fused_horizon"])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_offgrid_kernel_matches_plain(cuda_device, normalize, method):
+    """The off-grid mode, chord and full Newton, on a sigma-weighted
+    log-spaced ladder (stride 1, 8, 16), float64: conv, its, fulls and
+    execs equal; sse and esum within 1e-9 relative; one launch per phase."""
+    mat, n0, p0, e0, _, cfg = _problem(cuda_device, torch.float64, method=method)
     sched = ((1, 36), (8, 64), (16, 64))
     sim = SimParams(length=311.0, time=2000.0 * cfg.num_steps / 80000, L=128,
                     T=cfg.num_steps)
@@ -103,16 +145,38 @@ def test_offgrid_kernel_matches_plain(cuda_device, normalize):
         return calls[-1][1]
     offgrid.solve_offgrid(mat, n0, p0, e0, cfg, tables, sched, pl_log_scale(sim),
                           1e-300, normalize=normalize, kernel=rec)
-    before = hk.launches["offgrid"]
+    key = "offgrid" if method == "fused_horizon_chord" else "offgrid_full"
+    before = hk.launches[key]
     for args, ref in calls:
         out = hk.horizon_chord(*args)
         torch.cuda.synchronize()
-        for name in ("conv", "its", "maxit", "fulls", "execs"):
-            assert torch.equal(getattr(out, name), getattr(ref, name)), name
-        torch.testing.assert_close(out.sse, ref.sse, rtol=1e-9, atol=0.0)
-        torch.testing.assert_close(out.esum, ref.esum, rtol=1e-9, atol=1e-12)
-        torch.testing.assert_close(out.n, ref.n, rtol=1e-9, atol=0.0)
-    assert hk.launches["offgrid"] - before == 3
+        _check_phase(out, ref)
+    assert hk.launches[key] - before == 3
+
+
+def test_newton_step_kernel_matches_plain(cuda_device, monkeypatch):
+    """The per-step kernel on the recorded inputs of every step of a
+    masked float64 ladder run with method coupled_newton_pallas, against
+    coupled_newton_step: conv and its equal, N/P/E within 1e-9."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, torch.float64, B=6,
+                                         T=36 + 2 * 16, method="coupled_newton_pallas")
+    steps = []
+
+    def rec(*args, **kw):
+        steps.append((args, kw))
+        return nk.newton_step(*args, **kw)
+    monkeypatch.setattr(solver, "newton_step", rec)
+    before = nk.launches
+    res = solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 16), (16, 16)))
+    assert nk.launches - before == len(steps) == 36 + 2 + 1
+    assert res.converged.any()
+    for args, kw in steps:
+        out = nk.newton_step(*args, **kw)
+        ref = coupled_newton_step(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out[3], ref[3]) and torch.equal(out[4], ref[4])
+        for a, b in zip(out[:3], ref[:3]):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
 
 
 def test_wrapper_rejects_bad_inputs(cuda_device):
@@ -127,3 +191,19 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="obs"):
         hk.horizon_chord(mat, n0, p0, e0, vals[:, :-1].contiguous().t(), None,
                          None, None, None, prm)
+
+
+def test_newton_step_rejects_bad_inputs(cuda_device):
+    mat, n0, p0, e0, _, _ = _problem(cuda_device, torch.float64, B=2, T=8)
+    mp = hk.MatParams.from_array(mat)
+    one = torch.ones((), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="bN"):
+        nk.newton_step(n0, p0, n0.float(), p0, e0, mp, one, one, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        nk.newton_step(n0, p0, n0.t().contiguous().t(), p0, e0, mp, one, one, 4)
+    with pytest.raises(ValueError, match="mp"):
+        nk.newton_step(n0, p0, n0, p0, e0, hk.MatParams.from_array(mat[:1]), one, one, 4)
+    with pytest.raises(ValueError, match="power of two"):
+        nk.newton_step(n0[:, :96].contiguous(), p0[:, :96].contiguous(),
+                       n0[:, :96].contiguous(), p0[:, :96].contiguous(),
+                       e0[:, :96].contiguous(), mp, one, one, 4)

@@ -38,7 +38,9 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 17
+    assert len(mods) >= 19
+    assert {"bayesian_inference_trpl_tpu_torch.ops.kernel_lib",
+            "bayesian_inference_trpl_tpu_torch.ops.newton_kernel"} <= set(mods)
 
 
 def test_port_sources_name_no_jax():
