@@ -18,30 +18,31 @@
 // fused_horizon), the shared check-then-solve exact Newton of
 // trpl_newton.cuh, with a Jacobian and a PCR reduce on every iteration.
 //
-// Design: one thread block per sample and one thread per spatial cell
-// (blockDim.x == L), the original CUDA design of the reference
-// (pvSimPCR.py).  The whole phase runs in one launch: a loop over time
-// inside the block takes the place of the TPU grid's sequential time axis.
-// Shared memory holds, per sample, the rolling 6-slot N/P/E histories, the
-// chord cache (the PCR elimination multipliers of every sweep plus the
-// final pair-solve blocks, reused across steps until a refresh) and the PCR
-// work arrays.  Reductions over L (residual norms, PL) are block
-// reductions whose result is bitwise identical in every thread, so the
-// Newton decisions (skip, loop exit, refresh) are uniform across the block.
-// Those decisions are therefore per sample; the JAX kernel takes them over
-// its whole sample tile (see ops/horizon_kernel.py, ``group``).  For FULL
-// that changes no result (see newton_full).
+// Design: one warp per sample, lane l holding cells l + 32 j (see
+// trpl_newton.cuh), up to 4 samples per block; the whole phase runs in one
+// launch, a loop over time inside the warp taking the place of the TPU
+// grid's sequential time axis.  Per sample, registers hold the state, the
+// rolling N/P histories (shifted by one slot per step, newest first) and
+// the final pair-solve blocks; lane-private shared memory holds the chord
+// cache, the E history and the likelihood accumulators.  Nothing in the
+// step loop waits on another warp: neighbours and reductions move by
+// shuffle, so the Newton decisions (skip, loop exit, refresh) are per
+// sample.  The JAX kernel takes them over its sample tile (see
+// ops/horizon_kernel.py, ``group``); for FULL that changes no result (see
+// newton_full).
 //
-// What bounds it on this card: FP32 (FP64) issue rate and __syncthreads
-// latency, not memory.  Device-memory traffic is a few bytes per
-// sample-step (one observation value per experiment, or 6 K values per
-// experiment off-grid, which stay in L2); every state array stays in
-// shared memory from the first step to the last.  Each Newton
-// iteration is a chain of short data-parallel phases over 128 cells
-// separated by block barriers (neighbour exchange, 6 PCR sweeps, block
-// reductions), so latency between barriers dominates at this occupancy.
-// Tensor cores, TMA, several samples per block and warp-level PCR are for
-// later work.
+// What bounds it on this card: FP32 (FP64) issue and the latency of
+// dependent shuffles and divides, not memory.  Device-memory traffic is a
+// few bytes per sample-step (one observation value per experiment, or 6 K
+// values per experiment off-grid, which stay in L2).  At L = 128 in
+// float32 the 4-cells-per-lane instantiation keeps every array in
+// registers (launch bounds of 2 blocks of 4 warps per SM, so up to 255
+// registers a lane; ~225 used, no spills) and a sample takes ~27 KB of
+// shared memory: 8 samples per SM, so the 1,024-sample chunk is resident
+// in one wave on 132 SMs, 2 warps per scheduler.  The PCR sweep is one
+// loop body for every distance (unrolled, it needs more than 255
+// registers and runs at half the speed).  Other widths run the same code
+// with the cells per lane read at run time (arrays in local memory).
 //
 // Arithmetic follows the JAX package's expression order, and the library
 // is built with --fmad=false, so float64 results agree with the plain
@@ -63,21 +64,6 @@ template <typename T> struct Args {
       skip_tighten, stall, step_tol_guard;
 };
 
-// Shared-memory layout, in elements of T: the rolling histories, the
-// Newton work area, the BDF table and ``slots`` likelihood accumulators per
-// experiment: 1 (stride 1), S (stride S) or K (off-grid).
-struct Layout {
-  int nh, ph, eh;
-  NewtonLayout nw;
-  int bdf, acc, total;
-  __host__ __device__ Layout(int L, int num_exp, int slots)
-      : nh(0), ph(6 * L), eh(12 * L), nw(L, 18 * L) {
-    bdf = nw.end;
-    acc = bdf + 32;
-    total = acc + 2 * num_exp * slots;
-  }
-};
-
 // The likelihood at the end of each step: at observation point t+1
 // (STRIDE1), at the S fine points of coarse step t by dense output
 // (STRIDES), or at the K observation slots of step t (OFFGRID).
@@ -89,16 +75,65 @@ template <int MODE> __host__ __device__ __forceinline__ int slots_of(int stride,
   return MODE == OFFGRID ? k : MODE == STRIDES ? stride : 1;
 }
 
-template <typename T, int MODE, int NEWTON>
-__global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
-  extern __shared__ unsigned char smem_raw[];
+// One sample's shared memory, in bytes from its base: the chord cache,
+// the rolling 6-slot E history ([slot][j][lane]) and ``slots`` likelihood
+// accumulators per experiment (sse, then esum).
+template <typename T> struct SampleLayout {
+  size_t eh, acc, bytes;
+  __host__ __device__ SampleLayout(int L, int num_exp, int slots) {
+    size_t o = cache_bytes<T>(L);
+    eh = o;
+    o += (size_t)6 * L * sizeof(T);
+    acc = o;
+    o += (size_t)2 * num_exp * slots * sizeof(T);
+    bytes = (o + 15) / 16 * 16;
+  }
+};
+
+// FULL body's history sums: every slot in ring order from ring slot 0, as
+// models/solver.bdf_step sums them (age-5 slot weight 0).  With t % 6 = R
+// ring slot s holds age (R - s) mod 6, which is history register (age)
+// (R - s) mod 6; eh is the ring itself.
+template <int R, int JC, typename T>
+__device__ __forceinline__ void full_sums(const Lane<JC>& ln, const T* bd,
+                                          T (*nh)[Lane<JC>::CAP], T (*ph)[Lane<JC>::CAP],
+                                          const T* eh, T* bN, T* bP, T* bE) {
+  const int J = ln.J();
+#pragma unroll
+  for (int j = 0; j < J; j++) bN[j] = bP[j] = bE[j] = T(0);
+#pragma unroll
+  for (int s = 0; s < 6; s++) {
+    const int m = (R - s + 6) % 6;
+    const T w = m < 5 ? bd[m + 1] : T(0);
+#pragma unroll
+    for (int j = 0; j < J; j++) {
+      bN[j] = bN[j] + w * nh[m][j];
+      bP[j] = bP[j] + w * ph[m][j];
+      bE[j] = bE[j] + w * eh[(s * J + j) * 32 + ln.lane];
+    }
+  }
+}
+
+template <typename T, int JC, int MODE, int NEWTON>
+__global__ void __launch_bounds__(128, JC > 0 ? 2 : 1)
+    horizon_kernel(const Args<T> a, const int spb, const size_t sample_bytes) {
+  constexpr int CAP = Lane<JC>::CAP;
+  constexpr int HS = NEWTON == FULL ? 6 : 5;   // N/P history registers, by age
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * spb + w;
+  if (b >= a.batch) return;   // the batch's tail: the warp has no sample
+  const Lane<JC> ln{(int)(threadIdx.x & 31), a.L >> 5};
+  const int J = ln.J(), L = a.L, lane = ln.lane;
   const int S = slots_of<MODE>(a.stride, a.offgrid_k);   // accumulators per experiment
-  const Layout ly(a.L, a.num_exp, S);
-  Block<T> bk{reinterpret_cast<T*>(smem_raw), ly.nw, (int)threadIdx.x, a.L, 0};
-  T* sm = bk.sm;
-  const int b = blockIdx.x, i = bk.i, L = bk.L;
   const int NE = a.num_exp, TS = a.T_steps;
   const bool approx = a.approx_inv != 0;
+  const SampleLayout<T> sl(L, NE, S);
+  unsigned char* base = smem_raw + (size_t)w * sample_bytes;
+  CBlk<T>* kc = reinterpret_cast<CBlk<T>*>(base);
+  T* eh = reinterpret_cast<T*>(base + sl.eh);
+  T* acc_sse = reinterpret_cast<T*>(base + sl.acc);
+  T* acc_esum = acc_sse + NE * S;
 
   const Mat<T> mp = load_mat(a.mat + (size_t)b * 12);
   const T tol = T(a.tol), step_tol = T(a.step_tol), log_scale = T(a.log_scale);
@@ -109,28 +144,32 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
   const T guard_chord = tol * T(a.settle_guard);
   const T stall = T(a.stall);
 
-  T* nh = sm + ly.nh;
-  T* ph = sm + ly.ph;
-  T* eh = sm + ly.eh;
-  T* bdf = sm + ly.bdf;
-  T* acc_sse = sm + ly.acc;
-  T* acc_esum = acc_sse + NE * S;
-  const size_t row0 = (size_t)b * L + i;
-  const T n_init = a.n0[row0], p_init = a.p0[row0];
-  for (int s = 0; s < 6; s++) {
-    nh[s * L + i] = s == 0 ? n_init : T(0);
-    ph[s * L + i] = s == 0 ? p_init : T(0);
-    eh[s * L + i] = s == 0 ? a.e0[row0] : T(0);
+  T nh[HS][CAP], ph[HS][CAP];
+  T N[CAP], P[CAP], E[CAP];
+  T v1[1][CAP];
+#pragma unroll
+  for (int j = 0; j < J; j++) {
+    const size_t row0 = (size_t)b * L + ln.cell(j);
+    N[j] = a.n0[row0];
+    P[j] = a.p0[row0];
+    E[j] = a.e0[row0];
+#pragma unroll
+    for (int s = 0; s < HS; s++) {
+      nh[s][j] = s == 0 ? N[j] : T(0);
+      ph[s][j] = s == 0 ? P[j] : T(0);
+    }
+    for (int s = 0; s < 6; s++) eh[(s * J + j) * 32 + lane] = s == 0 ? E[j] : T(0);
+    v1[0][j] = N[j] * P[j];
   }
-  if (i < 30) bdf[i] = a.bdf[i];
-  for (int k = i; k < 2 * NE * S; k += L) acc_sse[k] = T(0);
+  for (int k = lane; k < 2 * NE * S; k += 32) acc_sse[k] = T(0);
+  __syncwarp();
 
   // PL at the phase start (normalization anchor unless given, and the
   // dense-output window's newest node; on the phase's rescaled rate).
   const T n0p0 = mp.n0 * mp.p0;
-  T v4[4] = {n_init * p_init, T(0), T(0), T(0)};
-  block_reduce4(v4, sm + ly.nw.red, bk.parity, false);
-  const T pl00 = mp.rate * (v4[0] - T(L) * n0p0);
+  T r1[1];
+  warp_reduce<1, false>(ln, v1, r1);
+  const T pl00 = mp.rate * (r1[0] - T(L) * n0p0);
   const T pl0s = a.ext_pl0 ? a.pl0[b] : pl00;
   auto logpl = [&](T x) {
     if (a.normalize) return log10_of(nmax(x / pl0s, minv));
@@ -140,65 +179,77 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
 
   bool conv = true, cval = false;
   int its = 0, maxit = 0, fulls = 0, execs = 0;
-  T N = n_init, P = p_init, E = a.e0[row0];
+  Fin<T, Lane<JC>::HCAP> fin;
 
   for (int t = 0; t < TS; t++) {
     const int row = t < 4 ? t : 4;
-    const T a0 = bdf[row * 6];
-    int sl[5];
-#pragma unroll
-    for (int m = 0; m < 5; m++) sl[m] = ((t - m) % 6 + 6) % 6;
+    const T* bd = a.bdf + row * 6;
+    const T a0 = bd[0];
+
     // BDF history sums.  Newton's accepted iterates are only tol-accurate,
     // so two summation orders let trajectories drift apart far beyond
     // rounding (~1e-7 relative in float64 over 256 steps at tol 1e-4) and
     // flip Newton decisions; each body therefore keeps the order of the
     // function it is held to.  CHORD: newest first, as the JAX kernel.
-    // FULL: every slot from slot 0, from zero, as the step loops'
-    // models/solver.bdf_step (age-5 slot weight 0).
-    T bN, bP, bE;
+    // FULL: ring order (full_sums).
+    T bN[CAP], bP[CAP], bE[CAP];
     if (NEWTON == FULL) {
-      bN = bP = bE = T(0);
-#pragma unroll
-      for (int s = 0; s < 6; s++) {
-        const int m = ((t - s) % 6 + 6) % 6;
-        const T w = m < 5 ? bdf[row * 6 + m + 1] : T(0);
-        bN = bN + w * nh[s * L + i];
-        bP = bP + w * ph[s * L + i];
-        bE = bE + w * eh[s * L + i];
+      switch (t % 6) {
+        case 0: full_sums<0>(ln, bd, nh, ph, eh, bN, bP, bE); break;
+        case 1: full_sums<1>(ln, bd, nh, ph, eh, bN, bP, bE); break;
+        case 2: full_sums<2>(ln, bd, nh, ph, eh, bN, bP, bE); break;
+        case 3: full_sums<3>(ln, bd, nh, ph, eh, bN, bP, bE); break;
+        case 4: full_sums<4>(ln, bd, nh, ph, eh, bN, bP, bE); break;
+        default: full_sums<5>(ln, bd, nh, ph, eh, bN, bP, bE); break;
       }
     } else {
-      bN = bdf[row * 6 + 1] * nh[sl[0] * L + i];
-      bP = bdf[row * 6 + 1] * ph[sl[0] * L + i];
-      bE = bdf[row * 6 + 1] * eh[sl[0] * L + i];
+      const T w1 = bd[1];
+      const T* e_new = eh + (size_t)(t % 6) * J * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < J; j++) {
+        bN[j] = w1 * nh[0][j];
+        bP[j] = w1 * ph[0][j];
+        bE[j] = w1 * e_new[32 * j];
+      }
 #pragma unroll
       for (int m = 1; m < 5; m++) {
-        const T w = bdf[row * 6 + m + 1];
-        bN = bN + w * nh[sl[m] * L + i];
-        bP = bP + w * ph[sl[m] * L + i];
-        bE = bE + w * eh[sl[m] * L + i];
+        const T wm = bd[m + 1];
+        const T* e_m = eh + (size_t)((t - m + 6) % 6) * J * 32 + lane;
+#pragma unroll
+        for (int j = 0; j < J; j++) {
+          bN[j] = bN[j] + wm * nh[m][j];
+          bP[j] = bP[j] + wm * ph[m][j];
+          bE[j] = bE[j] + wm * e_m[32 * j];
+        }
       }
     }
-    N = nh[sl[0] * L + i];
-    P = ph[sl[0] * L + i];
+#pragma unroll
+    for (int j = 0; j < J; j++) {
+      N[j] = nh[0][j];
+      P[j] = ph[0][j];
+    }
     if (a.pred_order) {
       // Extrapolated initial iterate with a positivity fallback
       // (models/solver.bdf_step; horizon_kernel.py:568-592).
-      const T Nm = nh[sl[1] * L + i], Pm = ph[sl[1] * L + i];
       const T ramp = t > 0 ? T(1) : T(0);
-      const T d1n = N - Nm, d1p = P - Pm;
-      T Nx = N + ramp * d1n;
-      T Px = P + ramp * d1p;
-      if (a.pred_order == 2) {
-        const T ramp2 = t > 1 ? T(1) : T(0);
-        Nx = Nx + ramp2 * (d1n - (Nm - nh[sl[2] * L + i]));
-        Px = Px + ramp2 * (d1p - (Pm - ph[sl[2] * L + i]));
+      const T ramp2 = t > 1 ? T(1) : T(0);
+#pragma unroll
+      for (int j = 0; j < J; j++) {
+        const T Nm = nh[1][j], Pm = ph[1][j];
+        const T d1n = N[j] - Nm, d1p = P[j] - Pm;
+        T Nx = N[j] + ramp * d1n;
+        T Px = P[j] + ramp * d1p;
+        if (a.pred_order == 2) {
+          Nx = Nx + ramp2 * (d1n - (Nm - nh[2][j]));
+          Px = Px + ramp2 * (d1p - (Pm - ph[2][j]));
+        }
+        if (a.pred_order == 3) {
+          Nx = Nm > T(0) ? N[j] * (N[j] / Nm) : Nx;
+          Px = Pm > T(0) ? P[j] * (P[j] / Pm) : Px;
+        }
+        N[j] = Nx > T(0) ? Nx : N[j];
+        P[j] = Px > T(0) ? Px : P[j];
       }
-      if (a.pred_order == 3) {
-        Nx = Nm > T(0) ? N * (N / Nm) : Nx;
-        Px = Pm > T(0) ? P * (P / Pm) : Px;
-      }
-      N = Nx > T(0) ? Nx : N;
-      P = Px > T(0) ? Px : P;
     }
 
     int step_its = 0;
@@ -206,38 +257,41 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
     if (NEWTON == FULL) {
       // ---- Full Newton (horizon_kernel._newton_solve): every iteration
       // is a refresh, so the chord telemetry counts it in both.
-      done = newton_full(bk, mp, a0, N, P, bN, bP, bE, tol, skip_full, guard_full,
-                         step_tol, a.max_iters, approx, step_its);
+      done = newton_full(ln, mp, a0, N, P, bN, bP, bE, tol, skip_full, guard_full, step_tol,
+                         a.max_iters, approx, kc, step_its);
       execs += step_its;
       fulls += step_its;
     } else {
       // ---- Chord Newton (horizon_kernel._newton_solve_chord).
-      T FN, FP, errn, errp;
-      Aux<T> ax;
-      residual(bk, mp, a0, N, P, bN, bP, bE, FN, FP, errn, errp, ax);
+      T FN[CAP], FP[CAP], errn, errp;
+      Aux<T, CAP> ax;
+      residual(ln, mp, a0, N, P, bN, bP, bE, FN, FP, errn, errp, ax);
       done = errn < skip_tol && errp < skip_tol;
       if (!done) {
         bool full = !cval;
         for (int it = 0; it < a.max_iters && !done; it++) {
           execs++;
           if (full) {
-            refresh(bk, mp, a0, ax, approx);
+            refresh(ln, mp, a0, ax, approx, kc, fin);
             cval = true;
             fulls++;
           }
-          T dN, dP;
-          apply(bk, FN, FP, dN, dP);
+          T dN[CAP], dP[CAP];
+          apply(ln, kc, fin, FN, FP, dN, dP);
           const T upd = T(1);
-          N = N + upd * (nmax(N + dN, T(0.05) * N) - N);
-          P = P + upd * (nmax(P + dP, T(0.05) * P) - P);
+#pragma unroll
+          for (int j = 0; j < J; j++) {
+            N[j] = N[j] + upd * (nmax(N[j] + dN[j], T(0.05) * N[j]) - N[j]);
+            P[j] = P[j] + upd * (nmax(P[j] + dP[j], T(0.05) * P[j]) - P[j]);
+          }
           step_its++;
-          T m4[4] = {absv(dN), absv(N), absv(dP), absv(P)};
-          block_reduce4(m4, sm + ly.nw.red, bk.parity, true);
+          T m4[4];
+          step_maxima(ln, dN, N, dP, P, m4);
           const T guard = full ? guard_full : guard_chord;
           const bool ok_step = m4[0] <= step_tol * m4[1] && m4[2] <= step_tol * m4[3] &&
                                errn < guard && errp < guard;
           T errn2, errp2;
-          residual(bk, mp, a0, N, P, bN, bP, bE, FN, FP, errn2, errp2, ax);
+          residual(ln, mp, a0, N, P, bN, bP, bE, FN, FP, errn2, errp2, ax);
           done = ok_step || (errn2 < skip_tol && errp2 < skip_tol);
           const bool bad = !done && (errn2 > stall * errn || errp2 > stall * errp);
           full = bad || it + 1 >= a.chord_budget;
@@ -247,22 +301,30 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
         done = done || (errn < tol && errp < tol);
       }
     }
-    // ---- E update (trpl.update_e); xN/xP hold the accepted iterate.
-    E = update_e_cell(bk, mp, a0, N, P, bE);
-    const int sn = (t + 1) % 6;
-    nh[sn * L + i] = N;
-    ph[sn * L + i] = P;
-    eh[sn * L + i] = E;
+    // ---- E update (trpl.update_e) at the accepted iterate; the histories
+    // move up one slot (N/P) or one ring slot (E).
+    update_e(ln, mp, a0, N, P, bE, E);
+    T* e_next = eh + (size_t)((t + 1) % 6) * J * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < J; j++) {
+#pragma unroll
+      for (int s = HS - 1; s > 0; s--) {
+        nh[s][j] = nh[s - 1][j];
+        ph[s][j] = ph[s - 1][j];
+      }
+      nh[0][j] = N[j];
+      ph[0][j] = P[j];
+      e_next[32 * j] = E[j];
+      v1[0][j] = N[j] * P[j];
+    }
     its += step_its;
     maxit = step_its > maxit ? step_its : maxit;
 
     // ---- Fused likelihood (see Mode).
-    T p4[4] = {N * P, T(0), T(0), T(0)};
-    block_reduce4(p4, sm + ly.nw.red, bk.parity, false);
-    const T lp = logpl(mp.rate * (p4[0] - T(L) * n0p0));
-    T w_any = T(0);
+    warp_reduce<1, false>(ln, v1, r1);
+    const T lp = logpl(mp.rate * (r1[0] - T(L) * n0p0));
     if (MODE == STRIDE1) {
-      for (int e = i; e < NE; e += L) {
+      for (int e = lane; e < NE; e += 32) {
         const T err = lp - a.obs[(size_t)e * TS + t];
         if (a.has_mask) {
           const T m = a.msk[(size_t)e * TS + t];
@@ -275,14 +337,14 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
       }
     } else if (MODE == OFFGRID) {
       // Slot k of experiment e: its 4 window weights lie K apart in the
-      // (E, T, 4K) table; values and weights are (E, T, K).  Thread k owns
-      // slot k's sums, so no barrier is needed until the final reduction.
+      // (E, T, 4K) table; values and weights are (E, T, K).  Lane k % 32
+      // owns slot k's sums.
       lpw0 = lpw1;
       lpw1 = lpw2;
       lpw2 = lpw3;
       lpw3 = lp;
       for (int e = 0; e < NE; e++) {
-        for (int k = i; k < S; k += L) {
+        for (int k = lane; k < S; k += 32) {
           const size_t o = ((size_t)e * TS + t) * S + k;
           const T* W = a.wtab + ((size_t)e * TS + t) * 4 * S + k;
           const T lpa = lpw0 * W[0] + lpw1 * W[S] + lpw2 * W[2 * S] + lpw3 * W[3 * S];
@@ -300,19 +362,19 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
       lpw1 = lpw2;
       lpw2 = lpw3;
       lpw3 = lp;
-      if (i < S) {
-        const T* W = a.wtab + ((size_t)(t < 2 ? t : 2) * S + i) * 4;
+      for (int k = lane; k < S; k += 32) {
+        const T* W = a.wtab + ((size_t)(t < 2 ? t : 2) * S + k) * 4;
         const T lpf = lpw0 * W[0] + lpw1 * W[1] + lpw2 * W[2] + lpw3 * W[3];
         for (int e = 0; e < NE; e++) {
-          const size_t o = ((size_t)e * TS + t) * S + i;
+          const size_t o = ((size_t)e * TS + t) * S + k;
           const T err = lpf - a.obs[o];
           if (a.has_mask) {
             const T vm = a.vmask[o];
-            acc_sse[e * S + i] = acc_sse[e * S + i] + vm * err * err;
-            acc_esum[e * S + i] = acc_esum[e * S + i] + vm * err;
+            acc_sse[e * S + k] = acc_sse[e * S + k] + vm * err * err;
+            acc_esum[e * S + k] = acc_esum[e * S + k] + vm * err;
           } else {
-            acc_sse[e * S + i] = acc_sse[e * S + i] + err * err;
-            acc_esum[e * S + i] = acc_esum[e * S + i] + err;
+            acc_sse[e * S + k] = acc_sse[e * S + k] + err * err;
+            acc_esum[e * S + k] = acc_esum[e * S + k] + err;
           }
         }
       }
@@ -320,27 +382,31 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
     if (MODE != OFFGRID && a.has_mask) {
       // Padding-only steps (zero weight in every experiment) cannot fail
       // a sample.
-      w_any = a.msk[t];
+      T w_any = a.msk[t];
       for (int e = 1; e < NE; e++) w_any = nmax(w_any, a.msk[(size_t)e * TS + t]);
       done = done || !(w_any > T(0));
     }
     conv = conv && done;
   }
 
-  __syncthreads();
-  for (int e = i; e < NE; e += L) {
+  __syncwarp();
+  for (int e = lane; e < NE; e += 32) {
     T s = acc_sse[e * S], q = acc_esum[e * S];
-    for (int j = 1; j < S; j++) {
-      s = s + acc_sse[e * S + j];
-      q = q + acc_esum[e * S + j];
+    for (int k = 1; k < S; k++) {
+      s = s + acc_sse[e * S + k];
+      q = q + acc_esum[e * S + k];
     }
     a.sse[(size_t)e * a.batch + b] = s;
     a.esum[(size_t)e * a.batch + b] = q;
   }
-  a.n_out[row0] = N;
-  a.p_out[row0] = P;
-  a.e_out[row0] = E;
-  if (i == 0) {
+#pragma unroll
+  for (int j = 0; j < J; j++) {
+    const size_t row0 = (size_t)b * L + ln.cell(j);
+    a.n_out[row0] = N[j];
+    a.p_out[row0] = P[j];
+    a.e_out[row0] = E[j];
+  }
+  if (lane == 0) {
     a.conv[b] = conv ? 1 : 0;
     a.its[b] = its;
     a.maxit[b] = maxit;
@@ -349,18 +415,41 @@ __global__ void __launch_bounds__(1024) horizon_kernel(const Args<T> a) {
   }
 }
 
+// The kernel of a launch: the 4-cells-per-lane instantiation at L = 128,
+// the run-time one at any other width.
+template <typename T, int MODE, int NEWTON>
+__host__ auto kernel_for(int L) {
+  return L == 128 ? horizon_kernel<T, 4, MODE, NEWTON> : horizon_kernel<T, 0, MODE, NEWTON>;
+}
+
 template <typename T, int MODE, int NEWTON>
 int launch(const Args<T>& a, cudaStream_t stream) {
   const int mode = a.offgrid_k > 0 ? OFFGRID : a.stride > 1 ? STRIDES : STRIDE1;
   if (mode != MODE || (MODE == OFFGRID && a.stride != 1)) return (int)cudaErrorInvalidValue;
   if (a.batch == 0 || a.T_steps == 0) return 0;
-  const Layout ly(a.L, a.num_exp, slots_of<MODE>(a.stride, a.offgrid_k));
-  const size_t bytes = (size_t)ly.total * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      horizon_kernel<T, MODE, NEWTON>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const SampleLayout<T> sl(a.L, a.num_exp, slots_of<MODE>(a.stride, a.offgrid_k));
+  const int spb = samples_per_block(sl.bytes);
+  const size_t bytes = sl.bytes * spb;
+  auto kernel = kernel_for<T, MODE, NEWTON>(a.L);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  horizon_kernel<T, MODE, NEWTON><<<a.batch, a.L, bytes, stream>>>(a);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(a.batch + spb - 1) / spb, 32 * spb, bytes, stream>>>(a, spb, sl.bytes);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int MODE, int NEWTON>
+int layout(int L, int num_exp, int stride, int offgrid_k, int* out) {
+  const SampleLayout<T> sl(L, num_exp, slots_of<MODE>(stride, offgrid_k));
+  const int spb = samples_per_block(sl.bytes);
+  auto kernel = kernel_for<T, MODE, NEWTON>(L);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  return query_layout(kernel, spb, sl.bytes * spb, out);
 }
 
 template <typename T, int MODE, int NEWTON>
@@ -418,21 +507,41 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
 // launcher per Newton body (chord, full), mode (stride 1, stride S > 1,
 // off-grid) and dtype.  Each returns the launch's cudaError_t (0 on
 // success); the kernel runs on the given stream and does not synchronise.
+// Beside each, ``..._layout`` fills 7 ints with the launch layout at width
+// L (see query_layout) for ``num_exp`` experiments, stride and K.
 #define TRPL_HORIZON_ENTRY(newton, NEWTON, mode, MODE, dt, T)                    \
   extern "C" int trpl_horizon_##newton##_##mode##_##dt(TRPL_ENTRY_ARGS) {       \
     return entry<T, MODE, NEWTON>(TRPL_ENTRY_CALL);                              \
+  }                                                                              \
+  extern "C" int trpl_horizon_##newton##_##mode##_##dt##_layout(                 \
+      int L, int num_exp, int stride, int offgrid_k, int* out) {                 \
+    return layout<T, MODE, NEWTON>(L, num_exp, stride, offgrid_k, out);          \
   }
-#define TRPL_HORIZON_ENTRIES(newton, NEWTON)                                     \
-  TRPL_HORIZON_ENTRY(newton, NEWTON, stride1, STRIDE1, f32, float)               \
-  TRPL_HORIZON_ENTRY(newton, NEWTON, stride1, STRIDE1, f64, double)              \
-  TRPL_HORIZON_ENTRY(newton, NEWTON, strides, STRIDES, f32, float)               \
-  TRPL_HORIZON_ENTRY(newton, NEWTON, strides, STRIDES, f64, double)              \
-  TRPL_HORIZON_ENTRY(newton, NEWTON, offgrid, OFFGRID, f32, float)               \
-  TRPL_HORIZON_ENTRY(newton, NEWTON, offgrid, OFFGRID, f64, double)
+#define TRPL_HORIZON_PAIR(newton, NEWTON, mode, MODE)                            \
+  TRPL_HORIZON_ENTRY(newton, NEWTON, mode, MODE, f32, float)                     \
+  TRPL_HORIZON_ENTRY(newton, NEWTON, mode, MODE, f64, double)
 
-TRPL_HORIZON_ENTRIES(chord, CHORD)
-TRPL_HORIZON_ENTRIES(full, FULL)
-
+// ops/kernel_lib.py compiles this file once per part, -DTRPL_PART=0..5, all
+// parts at once: one per Newton body and mode (4 kernels each).
+// nvcc parts: 6
+#if !defined(TRPL_PART) || TRPL_PART == 0
+TRPL_HORIZON_PAIR(chord, CHORD, stride1, STRIDE1)
 extern "C" const char* trpl_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+#endif
+#if !defined(TRPL_PART) || TRPL_PART == 1
+TRPL_HORIZON_PAIR(chord, CHORD, strides, STRIDES)
+#endif
+#if !defined(TRPL_PART) || TRPL_PART == 2
+TRPL_HORIZON_PAIR(chord, CHORD, offgrid, OFFGRID)
+#endif
+#if !defined(TRPL_PART) || TRPL_PART == 3
+TRPL_HORIZON_PAIR(full, FULL, stride1, STRIDE1)
+#endif
+#if !defined(TRPL_PART) || TRPL_PART == 4
+TRPL_HORIZON_PAIR(full, FULL, strides, STRIDES)
+#endif
+#if !defined(TRPL_PART) || TRPL_PART == 5
+TRPL_HORIZON_PAIR(full, FULL, offgrid, OFFGRID)
+#endif

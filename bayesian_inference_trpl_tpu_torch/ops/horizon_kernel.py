@@ -23,18 +23,19 @@ PCR factorization, or a full Jacobian refresh; full: the check, then a
 Jacobian and a PCR solve on every iteration), the E update, and the fused
 likelihood.
 
-Three pieces live here:
+Four pieces live here:
 
 * :func:`horizon_chord` -- the wrapper.  On a CUDA tensor it launches the
   hand-written kernel (csrc/horizon_kernel.cu, built by ops/kernel_lib.py
   into a plain-C shared library and called through ctypes) or raises; on a
-  CPU tensor it runs the plain version.
+  CPU tensor it runs the plain version.  :func:`launch_layout` reports how
+  a launch sits on the card.
 * :func:`horizon_chord_plain` -- the plain PyTorch version of the same
   function: a Python step loop over models/newton.py and
   ops/block_tridiag.py.  Its ``group`` argument sets how many samples share
-  the three block-wide decisions of chord Newton (skip the step, leave the
-  iteration loop, refresh the Jacobian).  The CUDA kernel runs one sample
-  per thread block, so it is held to ``group=1``; the JAX kernel takes them
+  the three decisions of chord Newton (skip the step, leave the iteration
+  loop, refresh the Jacobian).  The CUDA kernel runs one sample per warp
+  and takes them per sample, so it is held to ``group=1``; the JAX kernel takes them
   over its whole sample tile, so it is held to ``group`` = the tile.  Full
   Newton's tile-wide decisions change no sample's result, so it has no
   group: its steps are models/solver.bdf_step with coupled Newton, the
@@ -410,8 +411,8 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     fused likelihood.
 
     Arguments as :func:`horizon_chord_plain`.  On CUDA tensors this launches
-    the hand-written kernel (one thread block per sample, so the Newton
-    decisions are per sample); on CPU tensors it runs the plain version
+    the hand-written kernel (one warp per sample, so the Newton decisions
+    are per sample); on CPU tensors it runs the plain version
     with ``group=1``, the same function.
     """
     if n0.device.type == "cpu":
@@ -444,8 +445,6 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             _check("msk", msk, dtype, (num_exp, T), dev)
     if S > 1:
         _check("wtab", wtab, dtype, (3, S, 4), dev)
-        if S > L:
-            raise ValueError(f"horizon_chord: stride {S} exceeds L={L}")
         if msk is not None:
             _check("vmask", vmask, dtype, (num_exp, T, S), dev)
     if pl0 is not None:
@@ -477,6 +476,20 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     kernel_lib.check(rc, "horizon kernel")
     launches[mode if prm.chord else mode + "_full"] += 1
     return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs)
+
+
+def launch_layout(batch: int, L: int, num_exp: int, stride: int = 1,
+                  offgrid_k: int = 0, chord: bool = True,
+                  dtype=torch.float32) -> dict:
+    """How one launch of the CUDA kernel sits on the current card: samples
+    and threads per block, shared memory per block, resident blocks and
+    samples per SM, registers and local memory per thread, and waves per
+    launch at ``batch`` samples (ops/kernel_lib.layout)."""
+    entry = "trpl_horizon_{}_{}_{}".format(
+        "chord" if chord else "full",
+        "offgrid" if offgrid_k else "stride1" if stride == 1 else "strides",
+        "f32" if dtype == torch.float32 else "f64")
+    return kernel_lib.layout(entry, batch, L, num_exp, stride, offgrid_k)
 
 
 # ---------------------------------------------------------------------------

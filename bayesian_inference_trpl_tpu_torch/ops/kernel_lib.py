@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` file under csrc/ is compiled by its own ``nvcc`` process, all
-started together, and the objects are linked into one shared library with
+Every ``*.cu`` file under csrc/ is compiled by its own ``nvcc`` processes,
+all started together: one, or one per part for a file with a line
+``// nvcc parts: N`` (part k is compiled with ``-DTRPL_PART=k`` and holds
+some of the file's entries).  The objects are linked into one shared library with
 a plain C interface under build/ (no PyTorch headers, no ninja), loaded
 with ctypes at first use.  The library's file name carries a hash of every
 file under csrc/ (sources and the headers they share) and of the compiler
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -63,17 +66,20 @@ def build_library(verbose: bool = False) -> Path:
     try:
         jobs = []
         for src in sorted(_CSRC.glob("*.cu")):
-            obj = objdir / (src.stem + ".o")
-            cmd = [nvcc, *_FLAGS, "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
-                   "-o", str(obj), str(src)]
-            jobs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            m = re.search(r"^// nvcc parts: (\d+)$", src.read_text(), re.M)
+            for k in range(int(m.group(1)) if m else 1):
+                name = f"{src.name} part {k}" if m else src.name
+                obj = objdir / f"{src.stem}.{k}.o"
+                cmd = [nvcc, *_FLAGS, *([f"-DTRPL_PART={k}"] if m else []), "-Xptxas",
+                       "-v", "-Xcompiler", "-fPIC", "-c", "-o", str(obj), str(src)]
+                jobs.append((name, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         reports, failed = [], []
-        for src, _, proc in jobs:
+        for name, _, proc in jobs:
             _, err = proc.communicate()
-            reports.append(f"== {src.name}\n{err}")
+            reports.append(f"== {name}\n{err}")
             if proc.returncode != 0:
-                failed.append(f"nvcc {src.name} failed ({proc.returncode}):\n{err}")
+                failed.append(f"nvcc {name} failed ({proc.returncode}):\n{err}")
         if failed:
             raise RuntimeError("\n".join(failed))
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -106,6 +112,47 @@ def function(name: str, argtypes):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+LAYOUT_FIELDS = ("samples_per_block", "threads_per_block", "smem_per_block",
+                 "blocks_per_sm", "registers", "local_bytes", "sms")
+
+
+def layout(entry: str, batch: int, *ints) -> dict:
+    """The launch layout of C entry ``entry`` on the current card, from its
+    ``<entry>_layout`` companion, which takes ``ints`` and fills
+    LAYOUT_FIELDS (occupancy from cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    registers and local memory from cudaFuncGetAttributes); adds the
+    resident samples per SM and the waves of a launch of ``batch`` samples."""
+    fn = function(entry + "_layout", [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    out = (ctypes.c_int * len(LAYOUT_FIELDS))()
+    check(fn(*ints, ctypes.addressof(out)), entry + " layout")
+    d = dict(zip(LAYOUT_FIELDS, out))
+    d["samples_per_sm"] = d["blocks_per_sm"] * d["samples_per_block"]
+    blocks = -(-batch // d["samples_per_block"])
+    d["waves"] = blocks / max(d["blocks_per_sm"] * d["sms"], 1)
+    return d
+
+
+def ptxas_entries(report: str) -> list:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` report: (mangled name,
+    registers, spill store bytes, spill load bytes, stack frame bytes)."""
+    out, name, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), frame[1], frame[2], frame[0]))
+            name = None
+    return out
 
 
 def check_tensor(name, x, dtype, shape, device):

@@ -8,10 +8,12 @@ method ``coupled_newton_pallas``.
 
 * :func:`newton_step` -- the wrapper, with the signature of
   models/newton.coupled_newton_step.  On CUDA tensors it launches the
-  hand-written kernel (csrc/newton_kernel.cu, one thread block per sample;
-  its Newton body is the horizon kernel's full Newton, csrc/trpl_newton.cuh)
+  hand-written kernel (csrc/newton_kernel.cu, one warp per sample; its
+  Newton body is the horizon kernel's full Newton, csrc/trpl_newton.cuh)
   or raises; on CPU tensors it runs the plain version,
   ``coupled_newton_step`` itself.
+* :func:`step_launcher` -- one launch bound to its arguments, for timing.
+* :func:`launch_layout` -- how one launch sits on the card.
 * :func:`step_inputs_from_jax` -- one BDF step's JAX inputs, as numpy, as
   this port's tensors, so that tests feed both the same thing.
 """
@@ -51,10 +53,21 @@ def newton_step(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
     bool).  On CPU tensors this is ``coupled_newton_step``; on CUDA tensors
     one launch of the kernel.
     """
-    global launches
     if Nk0.device.type == "cpu":
         return coupled_newton_step(Nk0, Pk0, bN, bP, bE, mp, a0, tol, max_iters,
                                    step_tol=step_tol)
+    launch, (n, p, e, its, done) = step_launcher(Nk0, Pk0, bN, bP, bE, mp, a0, tol,
+                                                 max_iters, step_tol)
+    launch()
+    return n, p, e, its, done.bool()
+
+
+def step_launcher(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
+                  step_tol=0.0):
+    """Check :func:`newton_step`'s CUDA arguments and allocate its outputs;
+    returns (launch, (N, P, E, iters, converged as int32)), where each call
+    of ``launch()`` runs the kernel once into those outputs, with no other
+    host work (so that a timer around it sees the kernel alone)."""
     if Nk0.device.type != "cuda":
         raise ValueError(f"newton_step: unsupported device {Nk0.device}")
     dtype, dev = Nk0.dtype, Nk0.device
@@ -74,13 +87,25 @@ def newton_step(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
     done = torch.empty_like(its)
     fn = kernel_lib.function("trpl_newton_step_{}".format(
         "f32" if dtype == torch.float32 else "f64"), _ARGTYPES)
-    rc = fn(*(x.data_ptr() for x in (mat, Nk0, Pk0, bN, bP, bE, *scalars,
+    args = (*(x.data_ptr() for x in (mat, Nk0, Pk0, bN, bP, bE, *scalars,
                                      n, p, e, its, done)),
             batch, L, int(max_iters), float(SKIP_ACCEPT_FACTOR),
             float(STEP_TOL_RESIDUAL_GUARD), torch.cuda.current_stream(dev).cuda_stream)
-    kernel_lib.check(rc, "newton step kernel")
-    launches += 1
-    return n, p, e, its, done.bool()
+
+    def launch():
+        global launches
+        kernel_lib.check(fn(*args), "newton step kernel")
+        launches += 1
+    # Every tensor the launch reads or writes lives as long as the launch.
+    launch.keep = (mat, Nk0, Pk0, bN, bP, bE, scalars, n, p, e, its, done)
+    return launch, (n, p, e, its, done)
+
+
+def launch_layout(batch: int, L: int, dtype=torch.float32) -> dict:
+    """How one launch of the CUDA kernel sits on the current card
+    (ops/kernel_lib.layout), at ``batch`` samples."""
+    return kernel_lib.layout("trpl_newton_step_{}".format(
+        "f32" if dtype == torch.float32 else "f64"), batch, L)
 
 
 def step_inputs_from_jax(mp, Nk0, Pk0, bN, bP, bE, a0, tol, step_tol,

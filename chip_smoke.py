@@ -4,17 +4,20 @@
 
 Phases, each printed on its own line with its seconds:
 
-1. build   -- nvcc builds csrc/*.cu (the horizon kernel and the per-step
-              Newton kernel, one nvcc each, in parallel) into one library
-              under build/ (plain C interface, loaded with ctypes).
+1. build   -- nvcc builds csrc/*.cu (the horizon kernel in 6 parts and
+              the per-step Newton kernel in 2, one nvcc each, all in
+              parallel) into one library under build/ (plain C interface,
+              loaded with ctypes); prints every kernel's ptxas registers
+              and spills.
 2. compare -- the horizon kernel's chord body against its plain PyTorch
               version (group=1), on the card, on the same inputs: a seeded
               sample box, one curve of the power_scan configuration.  The
               plain version is a host-bound Python step loop, so both run
               a shortened ladder (256 fine steps, then 64 coarse steps at
               each of the strides 16/32/64).  float64 at 64 samples: conv,
-              its, fulls and execs equal, sse/esum within 1e-9 relative.
-              float32 at 1024 samples (the chunk): see F32_* below.  Then
+              its, fulls and execs equal, final N/P/E bitwise equal,
+              sse/esum within 1e-9 relative.  float32 at 1024 samples (the
+              chunk): see F32_* below.  Then
               the kernel alone on the full ladder (256 fine steps, then
               strides 16/32/64 x 512, the last rung 862), timed per launch
               by CUDA events at chunk 1024: the times in the kernel line.
@@ -37,6 +40,16 @@ Phases, each printed on its own line with its seconds:
               launch by CUDA events.
 9. main_newton_step -- as 3 with method coupled_newton_pallas: one launch
               of the per-step kernel per BDF step.
+10. compare_variants -- kernel vs plain (group=1), float64 (bitwise state,
+              equal counts) and float32, for what the main paths do not
+              launch: the previous, linear and geometric predictors, the
+              throughput chord profile, the run-time widths L = 32, 64 and
+              256, and batches that are not a multiple of the samples per
+              block (horizon kernel and per-step kernel).
+11. layout -- for every kernel entry of the kernels line: samples per
+              block, resident blocks and samples per SM
+              (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers,
+              local memory and waves per launch at chunk 1024.
 
 Then one JSON line describing every kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  Any failure
@@ -50,6 +63,7 @@ import functools
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -105,6 +119,29 @@ DO_LOG = [1, 1, 0, 0, 1, 1, 1, 1, 1, 0, 0, 1, 0]
 OFFGRID_POINTS = 400
 # Coarse steps per rung in the plain comparisons (the shortened ladder).
 SHORT_RUNG_STEPS = 64
+# The variants phase's ladder: 64 fine steps, then 16 coarse steps at
+# stride 16 and 8 at stride 64 (88 steps).
+VARIANT_SCHED = ((1, 64), (16, 256), (64, 512))
+# Launches the main paths do not make, each held to its plain version:
+# (name, method, ladder_inputs keywords; ``num`` sets both dtypes' samples).
+VARIANTS = (
+    ("previous", "fused_horizon_chord", dict(predictor="previous")),
+    ("linear", "fused_horizon_chord", dict(predictor="linear")),
+    ("geometric", "fused_horizon_chord", dict(predictor="geometric")),
+    ("full_previous", "fused_horizon", dict(predictor="previous")),
+    ("full_geometric", "fused_horizon", dict(predictor="geometric")),
+    ("throughput", "fused_horizon_chord", dict(predictor="geometric", throughput=True)),
+    ("L32", "fused_horizon_chord", dict(L=32)),
+    ("L64", "fused_horizon_chord", dict(L=64)),
+    ("L256", "fused_horizon_chord", dict(L=256)),
+    ("full_L64", "fused_horizon", dict(L=64)),
+    ("offgrid_L64", "fused_horizon_chord", dict(L=64, offgrid=True)),
+    ("tail_1001", "fused_horizon_chord", dict(num=1001)),
+    ("full_offgrid_tail_1001", "fused_horizon", dict(num=1001, offgrid=True)),
+)
+# Kernel template arguments in ptxas's mangled names: MODE (STRIDE1,
+# STRIDES, OFFGRID) and NEWTON (CHORD, FULL) of csrc/horizon_kernel.cu.
+MODE_ARG = {"stride_1": 0, "stride_s": 1, "offgrid": 2}
 
 
 def phase(name, t0, msg):
@@ -188,21 +225,26 @@ def ladder_schedule(short):
 
 
 def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
-                  short=False):
+                  short=False, predictor="quadratic", L=None, sched=None,
+                  throughput=False):
     """One curve of the power_scan configuration at ``num`` samples, on the
-    full or the shortened ladder; with ``offgrid`` its observations at the
-    log-spaced times, as slot tables.  Returns run(kernel), which solves it
-    with ``method`` and the given horizon-kernel entry."""
+    full or the shortened ladder (or ``sched``); with ``offgrid`` its
+    observations at the log-spaced times, as slot tables.  ``predictor``
+    and ``L`` replace power_scan's; ``throughput`` solves one fine phase of
+    ``sched``'s length under the throughput chord profile (the exact
+    mode's).  Returns run(kernel), which solves it with ``method`` and the
+    given horizon-kernel entry."""
     from bayesian_inference_trpl_tpu_torch import physics
     from bayesian_inference_trpl_tpu_torch.models.driver import SimParams, pl_log_scale
     from bayesian_inference_trpl_tpu_torch.models.solver import FusedObs
     from bayesian_inference_trpl_tpu_torch.utils import sampling
     g = POWER_SCAN
-    T, sched = ladder_schedule(short)
+    L = L or g["L"]
+    T, sched = ladder_schedule(short) if sched is None else (sum(n for _, n in sched), sched)
     time_ns = g["time"] * T / g["T"]
-    sim = SimParams(length=g["thickness"], time=time_ns, L=g["L"], T=T,
+    sim = SimParams(length=g["thickness"], time=time_ns, L=L, T=T,
                     tol_exp=g["tol_exp"], max_iters=g["max_iters"],
-                    method=method, predictor="quadratic",
+                    method=method, predictor=predictor,
                     step_tol=g["step_tol"], fast_fine_steps=g["fast_fine_steps"],
                     fast_coarse_stride=g["fast_coarse_stride"],
                     fast_max_stride=g["fast_max_stride"],
@@ -213,7 +255,7 @@ def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
     dev = "cuda"
     mat = torch.as_tensor(physics.nondimensionalize(X[:, :12], sim.dx, sim.dt),
                           dtype=dtype, device=dev)
-    dn = torch.as_tensor(excitation_profiles(g["L"], g["thickness"])[1] * sim.dx ** 3,
+    dn = torch.as_tensor(excitation_profiles(L, g["thickness"])[1] * sim.dx ** 3,
                          dtype=dtype, device=dev)
     n0 = (mat[:, 0:1] + dn[None]).contiguous()
     p0 = (mat[:, 1:2] + dn[None]).contiguous()
@@ -236,6 +278,13 @@ def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
                    min_val=sys.float_info.min)
 
     def run(kernel):
+        if throughput:
+            from bayesian_inference_trpl_tpu_torch.ops.horizon_kernel import solve_horizon_fused
+            cfg = sim.solver_config()._replace(num_steps=sched[0][1], chord_strict=False)
+            obs1 = obs._replace(values=obs.values[:, :sched[0][1] + 1])
+            solve_horizon_fused(mat, n0, p0, cfg, obs1, e_init=torch.zeros_like(n0),
+                                kernel=kernel)
+            return
         solve_multiphase(mat, n0, p0, torch.zeros_like(n0), sim.solver_config(),
                          obs, sched, kernel=kernel)
     return run
@@ -308,7 +357,13 @@ def check_f64(r):
             raise AssertionError(f"f64 {r['label']}: {name} rel err "
                                  f"{float(rel.max()):.3e} > {F64_RTOL}")
         err = max(err, float((a - b).abs()[both].max()) if both.any() else 0.0)
-    return err, state_rel(out, ref)
+    for name in ("n", "p", "e"):
+        a, b = getattr(out, name), getattr(ref, name)
+        if not torch.equal(a, b):
+            bad = int((a != b).any(1).sum())
+            raise AssertionError(f"f64 {r['label']}: final {name} not bitwise equal on "
+                                 f"{bad} samples")
+    return err
 
 
 def state_rel(out, ref):
@@ -439,12 +494,13 @@ def main():
     # 1. build
     t0 = time.perf_counter()
     lib = kernel_lib.build_library()
-    ptx = [ln.strip() for ln in kernel_lib.build_info.get("ptxas", "").splitlines()
-           if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    ptx = kernel_lib.ptxas_entries(kernel_lib.build_info.get("ptxas", ""))
     phase("build", t0, f"nvcc {kernel_lib.build_info['seconds']:.2f} s -> "
-          f"{os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))}")
-    for ln in ptx:
-        print(f"  ptxas: {ln}")
+          f"{os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))}"
+          + ("" if ptx else " (cached: no ptxas report)"))
+    for entry_name, regs, stores, loads, frame in ptx:
+        print(f"  ptxas: {kernel_label(entry_name)}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B, stack frame {frame} B")
 
     err64, plain32, timing, counts = {}, {}, {}, {}
     paths = MainPaths(hk, nk, run_main, bio, args, counts)
@@ -471,13 +527,20 @@ def main():
     print(f"  main_newton_step: wall per BDF step {step_wall_ms:.4f} ms = kernel "
           f"{step_kernel_ms:.4f} ms (CUDA events at chunk 1024, float32) + host and "
           f"launch {step_wall_ms - step_kernel_ms:.4f} ms")
+    # 10. what the main paths do not launch
+    compare_variants(hk, nk, solver, args.seed)
+    # 11. how each entry sits on the card
+    t0 = time.perf_counter()
+    layouts = {m: entry_layout(hk, nk, m, timing[m], ptx) for m in timing}
+    phase("layout", t0, "launch layout of every entry at chunk 1024, float32, L = 128")
 
     def entry(mode):
         t, p = timing[mode], plain32[mode]
         if mode == "newton_step":
             ident = dict(name="newton_step", source="bayesian_inference_trpl_tpu_torch/"
                          "csrc/newton_kernel.cu",
-                         replaces="bayesian_inference_trpl_tpu/ops/pallas/newton_kernel.py:92")
+                         replaces="bayesian_inference_trpl_tpu/ops/pallas/newton_kernel.py:92",
+                         wrapper_ms=float(np.mean([r["wrapper_ms"] for r in t])))
         else:
             body = "full" if mode.endswith("_full") else "chord"
             ident = dict(name=f"horizon_{body}_{mode.replace('_full', '')}",
@@ -490,7 +553,7 @@ def main():
             bound_ms=float(np.mean([r["bound_ms"] for r in t])),
             bound_by=t[0]["bound_by"], library_ms=None,
             steps=float(np.mean([r["steps"] for r in t])),
-            plain_steps=float(np.mean([r["steps"] for r in p])))
+            plain_steps=float(np.mean([r["steps"] for r in p])), **layouts[mode])
 
     print(json.dumps({"kernels": [entry(m) for m in (
         "stride_1", "stride_s", "offgrid", "stride_1_full", "stride_s_full",
@@ -499,6 +562,105 @@ def main():
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
+
+
+def kernel_label(mangled):
+    """A readable name for a kernel entry of the ptxas report."""
+    m = re.search(r"horizon_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)EE", mangled)
+    if m:
+        dt, jc, mode, newton = m.groups()
+        return (f"horizon {('chord', 'full')[int(newton)]} "
+                f"{('stride1', 'strides', 'offgrid')[int(mode)]} "
+                f"{'f32' if dt == 'f' else 'f64'} "
+                + ("L=128" if jc == "4" else "any L"))
+    m = re.search(r"newton_step_kernelI([fd])Li(\d+)EE", mangled)
+    if m:
+        dt, jc = m.groups()
+        return f"newton_step {'f32' if dt == 'f' else 'f64'} " + (
+            "L=128" if jc == "4" else "any L")
+    return mangled
+
+
+def entry_layout(hk, nk, mode, recs, ptx):
+    """Print and return the launch layout of one entry of the kernels line
+    at chunk 1024, float32, L = 128: for the horizon kernel at each phase's
+    stride or K of the timed ladder (the accumulators grow with them)."""
+    L, batch = POWER_SCAN["L"], 1024
+    if mode == "newton_step":
+        lays = [nk.launch_layout(batch, L)]
+        pat = "newton_step_kernelIfLi4EE"
+    else:
+        lays = [hk.launch_layout(batch, L, r["out"].sse.shape[0], r["stride"], r["K"],
+                                 r["chord"]) for r in recs]
+        pat = "horizon_kernelIfLi4ELi{}ELi{}EE".format(
+            MODE_ARG[mode.replace("_full", "")], int(mode.endswith("_full")))
+    spill = [(regs, st, ld) for name, regs, st, ld, _ in ptx if pat in name]
+    lo = min(lays, key=lambda d: d["samples_per_sm"])
+    print(f"  layout {mode}: {lo['samples_per_block']} samples per block of "
+          f"{lo['threads_per_block']} threads, "
+          + ", ".join(f"{d['smem_per_block']} B" for d in lays)
+          + f" shared memory per block; {lo['blocks_per_sm']} blocks = "
+          f"{lo['samples_per_sm']} samples per SM on {lo['sms']} SMs; "
+          f"{lo['registers']} registers, {lo['local_bytes']} B local memory per thread; "
+          f"waves per launch at {batch}: {max(d['waves'] for d in lays):.3f}"
+          + (f"; ptxas spill stores {spill[0][1]} B, loads {spill[0][2]} B"
+             if spill else ""))
+    return dict(registers=lo["registers"], samples_per_block=lo["samples_per_block"],
+                samples_per_sm=lo["samples_per_sm"],
+                waves=max(d["waves"] for d in lays),
+                spill_stores=spill[0][1] if spill else None)
+
+
+def compare_variants(hk, nk, solver, seed):
+    """Kernel vs plain (group=1) on VARIANT_SCHED for every VARIANTS entry,
+    float64 (64 samples unless ``num``: counts equal, final state bitwise)
+    and float32 (1024 samples unless ``num``: F32_* thresholds); then the
+    per-step kernel at a batch of 1001 against coupled_newton_step."""
+    t0 = time.perf_counter()
+    for name, method, kw in VARIANTS:
+        kw = dict(kw)
+        num = kw.pop("num", None)
+        msgs = []
+        for dtype, tag, n in ((torch.float64, "f64", num or 64),
+                              (torch.float32, "f32", num or 1024)):
+            run = ladder_inputs(n, dtype, seed, method=method, sched=VARIANT_SCHED, **kw)
+            recs = compare_phase(hk, run, tag)
+            if tag == "f64":
+                for r in recs:
+                    check_f64(r)
+                msgs.append(f"f64 x {n}: {len(recs)} launches, counts equal, "
+                            f"N/P/E bitwise")
+            else:
+                worst = min((check_f32(r)[:2] for r in recs), key=min)
+                msgs.append(f"f32 x {n}: conv equal {worst[0]:.4f}, sse within "
+                            f"{F32_RTOL} {worst[1]:.4f}")
+        print(f"  variant {name} ({method}, {kw or 'power_scan'}): " + "; ".join(msgs),
+              flush=True)
+    # The per-step kernel at a batch that is not a multiple of 4.
+    from bayesian_inference_trpl_tpu_torch.models.newton import coupled_newton_step
+    steps, orig = [], solver.newton_step
+
+    def rec(*a, **kw):
+        if len(steps) < 88:
+            steps.append((tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                                for x in a[:5]) + a[5:], dict(kw)))
+        return orig(*a, **kw)
+    solver.newton_step = rec
+    try:
+        ladder_inputs(1001, torch.float64, seed, method="coupled_newton_pallas",
+                      sched=VARIANT_SCHED)(None)
+    finally:
+        solver.newton_step = orig
+    for a, kw in steps[::8]:
+        out, ref = nk.newton_step(*a, **kw), coupled_newton_step(*a, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(out, ref)):
+            raise AssertionError("f64 newton_step at batch 1001 differs from "
+                                 "coupled_newton_step")
+    print(f"  variant newton_step_tail_1001: f64 x 1001, {len(steps[::8])} recorded "
+          f"steps, N/P/E bitwise, its/conv equal")
+    phase("compare_variants", t0, "kernel vs plain(group=1) where the main paths "
+          "do not go")
 
 
 def mode_of(r):
@@ -516,11 +678,11 @@ def compare_modes(hk, kind, method, seed, err64, plain32, timing):
     t0 = time.perf_counter()
     run = ladder_inputs(64, torch.float64, seed, offgrid, method, short=True)
     for r in compare_phase(hk, run, "f64"):
-        e, srel = check_f64(r)
+        e = check_f64(r)
         err64[mode_of(r)] = max(err64.get(mode_of(r), 0.0), e)
         print(f"  f64 {r['label']} x {r['steps']} steps, 64 samples: "
               f"conv/its/fulls/execs equal, max abs err {e:.3e}, "
-              f"final N/P max rel diff {srel:.1e}, "
+              f"final N/P/E bitwise equal, "
               f"conv {int(r['out'].conv.sum())}/64, fulls mean "
               f"{float(r['out'].fulls.float().mean()):.1f}")
     phase(f"compare{suffix}_f64", t0, f"kernel == plain(group=1) within {F64_RTOL} relative")
@@ -584,8 +746,11 @@ def compare_newton_step(nk, solver, seed, err64, plain32, timing):
             t1 = time.perf_counter()
             ref = coupled_newton_step(*a, **kw)
             torch.cuda.synchronize()
+            # The kernel alone (a bound launch), and with the wrapper's host
+            # work (checks, allocation) around each launch.
             r = dict(steps=1, out=out, ref=ref, plain_ms=1e3 * (time.perf_counter() - t1),
-                     kernel_ms=cuda_ms(lambda: nk.newton_step(*a, **kw), 20))
+                     kernel_ms=cuda_ms(nk.step_launcher(*a, **kw)[0], 20),
+                     wrapper_ms=cuda_ms(lambda: nk.newton_step(*a, **kw), 20))
             its, conv = out[3], out[4]
             L = out[0].shape[1]
             ops = L * (its.numel() * OPS_NEWTON_CALL
@@ -626,7 +791,8 @@ def compare_newton_step(nk, solver, seed, err64, plain32, timing):
                        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
                        f"{100 * r['bound_ms'] / r['kernel_ms']:.1f}% of it reached)")
             print(f"  {tag} newton_step at step {idx}, 1024 samples: {msg}; kernel "
-                  f"{r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms; its/sample "
+                  f"{r['kernel_ms']:.4f} ms (with the wrapper {r['wrapper_ms']:.4f} ms), "
+                  f"plain {r['plain_ms']:.2f} ms; its/sample "
                   f"{float(its.float().mean()):.2f}, conv {int(conv.sum())}/1024")
         phase(f"compare_newton_step_{tag}", t0,
               f"per-step kernel vs coupled_newton_step on {len(steps)} recorded steps")

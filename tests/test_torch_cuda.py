@@ -34,7 +34,7 @@ def cuda_device():
 
 
 def _problem(device, dtype, B=8, T=36 + 2 * 64, seed=0, method="fused_horizon_chord",
-             normalize=False):
+             normalize=False, L=128, predictor="quadratic", chord_strict=False):
     rng = np.random.default_rng(seed)
     lo = np.array([1e8, 1e14, 1.0, 1.0, 1e-11, 1e0, 1e0, 1e-30, 1e-30, 20.0, 20.0, 1e-1])
     hi = np.array([1e8, 1e16, 50.0, 50.0, 1e-9, 1e2, 1e2, 1e-28, 1e-28, 1000.0, 2000.0, 1e1])
@@ -42,7 +42,7 @@ def _problem(device, dtype, B=8, T=36 + 2 * 64, seed=0, method="fused_horizon_ch
     u = rng.uniform(size=(B, 12))
     x = np.where(log, 10 ** (np.log10(lo) + u * (np.log10(hi) - np.log10(lo))),
                  lo + u * (hi - lo)) * physics.UNIT_CONVERSIONS[:12]
-    sim = SimParams(length=311.0, time=2000.0 * T / 80000, L=128, T=T)
+    sim = SimParams(length=311.0, time=2000.0 * T / 80000, L=L, T=T)
     mat = torch.as_tensor(physics.nondimensionalize(x, sim.dx, sim.dt),
                           dtype=dtype, device=device)
     dn = initial_excess_density(sim, (1e18 / 1e7 ** 3, 100.0), "exp",
@@ -57,7 +57,7 @@ def _problem(device, dtype, B=8, T=36 + 2 * 64, seed=0, method="fused_horizon_ch
                    normalize=normalize)
     cfg = SolverConfig(num_steps=T, tol=1e-8 if dtype == torch.float64 else 1e-4,
                        max_iters=8, step_tol=1e-6, method=method,
-                       predictor="quadratic")
+                       predictor=predictor, chord_strict=chord_strict)
     return mat, n0, p0, torch.zeros_like(n0), obs, cfg
 
 
@@ -207,3 +207,102 @@ def test_newton_step_rejects_bad_inputs(cuda_device):
         nk.newton_step(n0[:, :96].contiguous(), p0[:, :96].contiguous(),
                        n0[:, :96].contiguous(), p0[:, :96].contiguous(),
                        e0[:, :96].contiguous(), mp, one, one, 4)
+
+
+# Variants of the launch the main path does not take: every predictor
+# branch, the throughput chord profile, the widths of the run-time
+# instantiation and a batch that is not a multiple of the 4 samples per
+# block.  Each: (method, problem arguments, single phase).
+VARIANTS = {
+    "previous": ("fused_horizon_chord", dict(predictor="previous"), False),
+    "linear": ("fused_horizon_chord", dict(predictor="linear"), False),
+    "geometric": ("fused_horizon_chord", dict(predictor="geometric"), False),
+    "full_previous": ("fused_horizon", dict(predictor="previous"), False),
+    "full_geometric": ("fused_horizon", dict(predictor="geometric"), False),
+    "throughput": ("fused_horizon_chord", dict(predictor="geometric"), True),
+    "L32": ("fused_horizon_chord", dict(L=32), False),
+    "L64": ("fused_horizon_chord", dict(L=64), False),
+    "L256": ("fused_horizon_chord", dict(L=256), False),
+    "full_L64": ("fused_horizon", dict(L=64), False),
+    "tail_1001": ("fused_horizon_chord", dict(B=1001), False),
+    "full_tail_1001": ("fused_horizon", dict(B=1001), False),
+}
+
+
+def _variant_calls(device, dtype, name):
+    method, kw, single = VARIANTS[name]
+    kw = dict(kw)
+    B = kw.pop("B", 8 if dtype == torch.float64 else 64)
+    mat, n0, p0, e0, obs, cfg = _problem(device, dtype, B=B, T=36 + 2 * 32,
+                                         method=method, **kw)
+    calls = []
+
+    def rec(*args):
+        calls.append((args, hk.horizon_chord_plain(*args, group=1)))
+        return calls[-1][1]
+    if single:
+        hk.solve_horizon_fused(mat, n0, p0, cfg, obs, e_init=e0, kernel=rec)
+        assert calls[0][0][-1].settle_guard == hk.CHORD_SETTLE_GUARD
+    else:
+        solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 32), (16, 32)),
+                         kernel=rec)
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_kernel_variants_match_plain_f64(cuda_device, name):
+    """float64, group = 1: final N/P/E bitwise; conv, its, maxit, fulls and
+    execs equal; sse and esum within 1e-9 relative."""
+    for args, ref in _variant_calls(cuda_device, torch.float64, name):
+        out = hk.horizon_chord(*args)
+        torch.cuda.synchronize()
+        _check_phase(out, ref)
+        for k in ("n", "p", "e"):
+            assert torch.equal(getattr(out, k), getattr(ref, k)), k
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_kernel_variants_match_plain_f32(cuda_device, name):
+    """float32: conv equal on >= 99% of the samples, and sse within 1e-3
+    relative on >= 99% of those converged in both (chip_smoke.py's
+    thresholds)."""
+    for args, ref in _variant_calls(cuda_device, torch.float32, name):
+        out = hk.horizon_chord(*args)
+        torch.cuda.synchronize()
+        assert float((out.conv == ref.conv).float().mean()) >= 0.99
+        both = out.conv & ref.conv
+        rel = ((out.sse - ref.sse).abs() / ref.sse.abs().clamp_min(1e-30)).amax(0)[both]
+        assert float((rel <= 1e-3).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("L, B", [(128, 1001), (64, 7)])
+def test_newton_step_tail_matches_plain(cuda_device, monkeypatch, L, B):
+    """The per-step kernel at a batch that is not a multiple of the samples
+    per block (and at the run-time width 64): its/conv equal, N/P/E
+    bitwise against coupled_newton_step in float64."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, torch.float64, B=B, L=L,
+                                         T=36 + 8 + 16, method="coupled_newton_pallas")
+    steps = []
+
+    def rec(*args, **kw):
+        steps.append((args, kw))
+        return nk.newton_step(*args, **kw)
+    monkeypatch.setattr(solver, "newton_step", rec)
+    solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 8), (16, 16)))
+    for args, kw in steps[::4]:
+        out = nk.newton_step(*args, **kw)
+        ref = coupled_newton_step(*args, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+
+
+def test_launch_layout_one_wave(cuda_device):
+    """At L = 128 in float32 a block holds 4 samples and an SM 8, so the
+    1,024-sample chunk is resident in one wave on 128 SMs or more."""
+    lay = hk.launch_layout(1024, 128, 1)
+    assert lay["samples_per_block"] == 4 and lay["threads_per_block"] == 128
+    assert lay["samples_per_sm"] >= 8
+    assert lay["sms"] < 128 or lay["waves"] <= 1.0
+    step = nk.launch_layout(1024, 128)
+    assert step["samples_per_block"] == 4 and step["samples_per_sm"] >= 8
