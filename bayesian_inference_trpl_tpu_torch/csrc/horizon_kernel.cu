@@ -452,6 +452,25 @@ int layout(int L, int num_exp, int stride, int offgrid_k, int* out) {
   return query_layout(kernel, spb, sl.bytes * spb, out);
 }
 
+// Shared memory of a launch at width L with ``slots`` accumulators per
+// experiment: out[0] bytes per sample, out[1] samples per block, out[2]
+// bytes per block, out[3] the opt-in bytes a block may take on this card.
+template <typename T>
+int smem(int L, int num_exp, int slots, long long* out) {
+  const SampleLayout<T> sl(L, num_exp, slots);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int spb = samples_per_block(sl.bytes);
+  out[0] = (long long)sl.bytes;
+  out[1] = spb;
+  out[2] = (long long)sl.bytes * spb;
+  out[3] = optin;
+  return 0;
+}
+
 template <typename T, int MODE, int NEWTON>
 int entry(const void* mat, const void* n0, const void* p0, const void* e0,
           const void* obs, const void* msk, const void* vmask, const void* pl0,
@@ -528,6 +547,12 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
 TRPL_HORIZON_PAIR(chord, CHORD, stride1, STRIDE1)
 extern "C" const char* trpl_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+extern "C" int trpl_horizon_smem_f32(int L, int num_exp, int slots, long long* out) {
+  return smem<float>(L, num_exp, slots, out);
+}
+extern "C" int trpl_horizon_smem_f64(int L, int num_exp, int slots, long long* out) {
+  return smem<double>(L, num_exp, slots, out);
 }
 #endif
 #if !defined(TRPL_PART) || TRPL_PART == 1

@@ -473,9 +473,37 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             float(prm.skip_accept_factor), float(prm.skip_tighten),
             float(prm.stall), float(prm.step_tol_guard),
             torch.cuda.current_stream(dev).cuda_stream)
-    kernel_lib.check(rc, "horizon kernel")
+    if rc != 0:
+        raise RuntimeError(_launch_error(rc, dtype, L, num_exp, K or S))
     launches[mode if prm.chord else mode + "_full"] += 1
     return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs)
+
+
+def shared_memory(L: int, num_exp: int, slots: int, dtype=torch.float32) -> dict:
+    """Shared memory a launch asks for on the current card: bytes per
+    sample (chord cache, E history and 2 x num_exp x slots accumulators),
+    samples per block, bytes per block, and the opt-in bytes a block may
+    take.  ``slots``: 1 at stride 1, S at stride S, K off-grid."""
+    fn = kernel_lib.function("trpl_horizon_smem_{}".format(
+        "f32" if dtype == torch.float32 else "f64"), [_CI] * 3 + [_VP])
+    out = (ctypes.c_longlong * 4)()
+    kernel_lib.check(fn(L, num_exp, slots, ctypes.addressof(out)), "horizon smem")
+    return dict(zip(("sample_bytes", "samples_per_block", "block_bytes",
+                     "optin_bytes"), out))
+
+
+def _launch_error(rc: int, dtype, L: int, num_exp: int, slots: int) -> str:
+    """The message of a failed launch, with the shared memory it asked for
+    (a sample's accumulators grow with num_exp x slots)."""
+    sm = shared_memory(L, num_exp, slots, dtype)
+    msg = (f"horizon kernel launch failed: CUDA error {rc} "
+           f"({kernel_lib.error_string(rc)}); it asks {sm['block_bytes']} B "
+           f"of shared memory per block ({sm['samples_per_block']} samples of "
+           f"{sm['sample_bytes']} B at L = {L}, {num_exp} experiments x "
+           f"{slots} slots), a block may take {sm['optin_bytes']} B")
+    if sm["sample_bytes"] > sm["optin_bytes"]:
+        msg += ": one sample does not fit; score fewer experiments per launch"
+    return msg
 
 
 def launch_layout(batch: int, L: int, num_exp: int, stride: int = 1,

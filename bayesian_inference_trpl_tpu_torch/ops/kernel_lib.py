@@ -165,8 +165,13 @@ def check_tensor(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def error_string(rc: int) -> str:
+    """cudaGetErrorString of a C entry's return code."""
+    return _lib.trpl_error_string(rc).decode()
+
+
 def check(rc: int, what: str):
     """Raise if a C entry returned a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
-                           f"({_lib.trpl_error_string(rc).decode()})")
+                           f"({error_string(rc)})")

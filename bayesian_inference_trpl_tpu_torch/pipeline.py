@@ -193,6 +193,19 @@ SOLVER_ROUTES = {
 }
 
 
+def phase_route(method: str, phases, T: int) -> str:
+    """The run log's words for how a curve is stepped: the stride ladder
+    (``phases``, more than one; chord Newton under the strict chord
+    profile) or exact fixed-dt stepping in one phase (chord Newton under
+    the throughput profile, ops/horizon_kernel._chord_knobs)."""
+    chord = method == "fused_horizon_chord"
+    if phases is not None and len(phases) > 1:
+        return (f"stride ladder of {len(phases)} phases"
+                + (", strict chord profile" if chord else ""))
+    return (f"exact fixed-dt: one phase of {T} steps"
+            + (", throughput chord profile" if chord else ""))
+
+
 def _check_supported(cfg: InferenceConfig):
     """Raise on the branches of the JAX pipeline this port does not carry
     yet, naming the ROADMAP item of each."""
@@ -260,16 +273,17 @@ def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
             sim_c, obs_vals, obs_mask = plan
             if logger:
                 logger.info("Observation times on simulation grid: fused "
-                            "likelihood (horizon %d steps%s)", sim_c.T,
-                            ", masked" if obs_mask is not None else "")
+                            "likelihood (horizon %d steps%s); %s", sim_c.T,
+                            ", masked" if obs_mask is not None else "",
+                            phase_route(sim_c.method, sim_c.fast_phases, sim_c.T))
             _, conv = runner.run_curve(X, sim_c, init_params[ic_num], obs_vals,
                                        obs_mask=obs_mask, **common)
         else:
             sim_c, schedule, tables = og
             if logger:
                 logger.info("Observation times off-grid: fused slot-table "
-                            "likelihood (horizon %d steps, %d phases)",
-                            sim_c.T, len(schedule))
+                            "likelihood (horizon %d steps); %s", sim_c.T,
+                            phase_route(sim_c.method, schedule, sim_c.T))
             _, conv = runner.run_curve_offgrid(X, sim_c, init_params[ic_num],
                                                tables, schedule, **common)
         conv_all &= conv

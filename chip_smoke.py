@@ -46,10 +46,32 @@ Phases, each printed on its own line with its seconds:
               throughput chord profile, the run-time widths L = 32, 64 and
               256, and batches that are not a multiple of the samples per
               block (horizon kernel and per-step kernel).
-11. layout -- for every kernel entry of the kernels line: samples per
+11. compare_exact, time_exact -- exact fixed-dt mode (no ladder: one
+              stride-1 launch over the whole horizon under the throughput
+              chord profile, geometric predictor): kernel vs plain
+              (group=1) on a shortened phase of 256 steps, float64 (counts
+              equal, N/P/E bitwise) and float32; then one 80,000-step
+              launch at chunk 1024 timed by CUDA events.
+12. main_exact -- as 3 on a TOML with no ladder and the geometric
+              predictor: exactly one stride-1 launch per chunk and curve.
+13. gate -- the port's accuracy gate (tools/accuracy_gate.main) on the
+              JAX package's two bundled batch-8 synthetic float64 caches
+              (seeds 0 and 1; missing caches fail the script): chord Newton
+              (fused_horizon_chord) asserted at the gate's thresholds, full
+              Newton (fused_horizon) printed with its verdict; the launch
+              layout at the gate's shapes.
+14. posterior, posterior_offgrid -- tools/posterior_equivalence.main on the
+              smoke's on-grid and off-grid inputs: the ladder against exact
+              fixed-dt stepping over one sample matrix, asserted at the JAX
+              tool's thresholds.
+15. layout -- for every kernel entry of the kernels line: samples per
               block, resident blocks and samples per SM
               (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers,
               local memory and waves per launch at chunk 1024.
+
+Phases 12 and 14 take ~0.6 s per 80,000-step launch; when the projected
+total passes BUDGET_S the off-grid posterior run is cut to 2,048 samples,
+then main_exact to 1,024, each cut printed.
 
 Then one JSON line describing every kernel, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  Any failure
@@ -139,6 +161,20 @@ VARIANTS = (
     ("tail_1001", "fused_horizon_chord", dict(num=1001)),
     ("full_offgrid_tail_1001", "fused_horizon", dict(num=1001, offgrid=True)),
 )
+# Exact fixed-dt mode: one phase over power_scan's whole horizon, and the
+# shortened phase of its plain comparison.
+EXACT_SCHED = ((1, POWER_SCAN["T"]),)
+EXACT_SHORT_SCHED = ((1, 256),)
+# Samples of main_exact and of each posterior-equivalence run, the cuts
+# taken in order when the projected script time passes BUDGET_S, and the
+# seconds charged per tool or CLI run besides its exact launches.
+EXACT_SAMPLES = 4096
+BUDGET_S = 400.0
+EXACT_CUTS = (("posterior_offgrid", 2048), ("main_exact", 1024))
+RUN_OVERHEAD_S = 4.0
+# The accuracy gate's bundled float64 caches (batch 8, synthetic profile).
+GATE_SEEDS = (0, 1)
+GATE_METHODS = (("fused_horizon_chord", True), ("fused_horizon", False))
 # Kernel template arguments in ptxas's mangled names: MODE (STRIDE1,
 # STRIDES, OFFGRID) and NEWTON (CHORD, FULL) of csrc/horizon_kernel.cu.
 MODE_ARG = {"stride_1": 0, "stride_s": 1, "offgrid": 2}
@@ -325,15 +361,15 @@ def compare_phase(hk, run, dtype_name):
     return recs
 
 
-def time_phase(hk, run):
+def time_phase(hk, run, reps=3):
     """The kernel alone on every phase of the full ladder: each launch's
-    inputs recorded, then timed (warm-up + 3 launches, CUDA events)."""
+    inputs recorded, then timed (warm-up + ``reps`` launches, CUDA events)."""
     rec = Recorder(hk.horizon_chord)
     run(rec)
     recs = []
     for args, out, _ in rec.calls:
         r = record(args[-1], args, out=out,
-                   kernel_ms=cuda_ms(lambda: hk.horizon_chord(*args), 3))
+                   kernel_ms=cuda_ms(lambda: hk.horizon_chord(*args), reps))
         r["bound_ms"], r["bound_by"] = bound_ms(r, POWER_SCAN["L"], PEAK_FP32)
         recs.append(r)
     return recs
@@ -402,11 +438,18 @@ def bound_ms(r, L, peak):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def write_main_inputs(tmp, num_points, seed, offgrid=False, method="fused_horizon_chord"):
+def write_main_inputs(tmp, num_points, seed, offgrid=False, method="fused_horizon_chord",
+                      exact=False):
     """Excitations, observations (on the grid, or at the off-grid times)
     and a TOML of the power_scan configuration with the solver ``method``,
-    in ``tmp``."""
+    in ``tmp``; ``exact`` leaves out the ladder (no fast_* keys: exact
+    fixed-dt mode) and takes the geometric predictor."""
     g = POWER_SCAN
+    ladder = "" if exact else f"""fast_fine_steps = {g['fast_fine_steps']}
+fast_coarse_stride = {g['fast_coarse_stride']}
+fast_max_stride = {g['fast_max_stride']}
+fast_steps_per_phase = {g['fast_steps_per_phase']}
+"""
     profiles = excitation_profiles(g["L"], g["thickness"])
     exc = os.path.join(tmp, "excitations.csv")
     obs = os.path.join(tmp, "observations.csv")
@@ -434,13 +477,9 @@ pl_stride = 1
 tol_exp = {g['tol_exp']}
 max_iters = {g['max_iters']}
 method = "{method}"
-predictor = "quadratic"
+predictor = "{'geometric' if exact else 'quadratic'}"
 step_tol = {g['step_tol']}
-fast_fine_steps = {g['fast_fine_steps']}
-fast_coarse_stride = {g['fast_coarse_stride']}
-fast_max_stride = {g['fast_max_stride']}
-fast_steps_per_phase = {g['fast_steps_per_phase']}
-
+{ladder}
 [params]
 min_x = {MIN_X}
 max_x = {MAX_X}
@@ -529,7 +568,17 @@ def main():
           f"launch {step_wall_ms - step_kernel_ms:.4f} ms")
     # 10. what the main paths do not launch
     compare_variants(hk, nk, solver, args.seed)
-    # 11. how each entry sits on the card
+    # 11-12. exact fixed-dt mode: kernel vs plain, one full launch, the CLI
+    launch_s = compare_exact(hk, args.seed, err64, plain32, timing)
+    sizes = exact_sizes(time.perf_counter() - t_all, launch_s)
+    paths.run("", "fused_horizon_chord", sizes["main_exact"], {"stride_1": 1}, exact=True)
+    # 13. the accuracy gate on the bundled exact caches
+    gate_phase(hk)
+    # 14. posterior equivalence, ladder against exact fixed-dt stepping
+    for kind in ("", "offgrid"):
+        posterior_phase(hk, kind, sizes["posterior" + ("_" + kind if kind else "")],
+                        args.seed)
+    # 15. how each entry sits on the card
     t0 = time.perf_counter()
     layouts = {m: entry_layout(hk, nk, m, timing[m], ptx) for m in timing}
     phase("layout", t0, "launch layout of every entry at chunk 1024, float32, L = 128")
@@ -557,7 +606,7 @@ def main():
 
     print(json.dumps({"kernels": [entry(m) for m in (
         "stride_1", "stride_s", "offgrid", "stride_1_full", "stride_s_full",
-        "offgrid_full", "newton_step")]}))
+        "offgrid_full", "stride_1_exact", "newton_step")]}))
     phase("total", t_all, "")
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -593,7 +642,8 @@ def entry_layout(hk, nk, mode, recs, ptx):
         lays = [hk.launch_layout(batch, L, r["out"].sse.shape[0], r["stride"], r["K"],
                                  r["chord"]) for r in recs]
         pat = "horizon_kernelIfLi4ELi{}ELi{}EE".format(
-            MODE_ARG[mode.replace("_full", "")], int(mode.endswith("_full")))
+            MODE_ARG[mode.replace("_full", "").replace("_exact", "")],
+            int(mode.endswith("_full")))
     spill = [(regs, st, ld) for name, regs, st, ld, _ in ptx if pat in name]
     lo = min(lays, key=lambda d: d["samples_per_sm"])
     print(f"  layout {mode}: {lo['samples_per_block']} samples per block of "
@@ -661,6 +711,146 @@ def compare_variants(hk, nk, solver, seed):
           f"steps, N/P/E bitwise, its/conv equal")
     phase("compare_variants", t0, "kernel vs plain(group=1) where the main paths "
           "do not go")
+
+
+def compare_exact(hk, seed, err64, plain32, timing):
+    """Exact fixed-dt mode's launch (stride 1, throughput chord profile,
+    geometric predictor): kernel vs plain (group=1) on a shortened phase,
+    float64 at 64 samples and float32 at 1024, then one launch over the
+    whole horizon at chunk 1024, timed (warm-up + 1 launch, CUDA events).
+    Returns that launch's seconds."""
+    mode = "stride_1_exact"
+    kw = dict(predictor="geometric", throughput=True)
+    t0 = time.perf_counter()
+    for dtype, tag, n in ((torch.float64, "f64", 64), (torch.float32, "f32", 1024)):
+        (r,) = compare_phase(hk, ladder_inputs(n, dtype, seed, sched=EXACT_SHORT_SCHED,
+                                               **kw), tag)
+        prm = r["args"][-1]
+        if (prm.stride, prm.settle_guard, prm.pred_order) != (1, hk.CHORD_SETTLE_GUARD, 3):
+            raise AssertionError(f"exact mode launched {prm}")
+        if tag == "f64":
+            err64[mode] = check_f64(r)
+            msg = f"conv/its/fulls/execs equal, max abs err {err64[mode]:.3e}, N/P/E bitwise"
+        else:
+            conv_eq, within, rmax, _ = check_f32(r)
+            plain32[mode] = [r]
+            msg = (f"conv equal {conv_eq:.4f}, sse within {F32_RTOL}: {within:.4f} "
+                   f"(max rel {rmax:.2e}); plain {r['plain_ms']:.1f} ms")
+        print(f"  {tag} exact x {r['steps']} steps, {n} samples: {msg}")
+    phase("compare_exact", t0, "kernel vs plain(group=1), throughput profile, geometric")
+
+    t0 = time.perf_counter()
+    (r,) = time_phase(hk, ladder_inputs(1024, torch.float32, seed, sched=EXACT_SCHED, **kw),
+                      reps=1)
+    timing[mode] = [r]
+    out = r["out"]
+    print(f"  kernel f32 exact x {r['steps']} steps, 1024 samples: {r['kernel_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{100 * r['bound_ms'] / r['kernel_ms']:.1f}% of it reached); "
+          f"conv {int(out.conv.sum())}/1024, its/sample {float(out.its.float().mean()):.1f}, "
+          f"execs/sample {float(out.execs.float().mean()):.1f}, "
+          f"fulls/sample {float(out.fulls.float().mean()):.1f}")
+    phase("time_exact", t0, "one exact-mode launch over the whole horizon at chunk 1024")
+    return r["kernel_ms"] / 1e3
+
+
+def exact_sizes(elapsed_s, launch_s):
+    """Samples of main_exact and of the two posterior runs: EXACT_SAMPLES,
+    cut in EXACT_CUTS's order while the projected script time (each
+    exact-mode launch ``launch_s``, each run RUN_OVERHEAD_S, the gate phase
+    alike) passes BUDGET_S."""
+    sizes = {"main_exact": EXACT_SAMPLES, "posterior": EXACT_SAMPLES,
+             "posterior_offgrid": EXACT_SAMPLES}
+
+    def projected():
+        launches = sum(3 * -(-n // 1024) for n in sizes.values())
+        return elapsed_s + launches * launch_s + (len(sizes) + 1) * RUN_OVERHEAD_S
+
+    for name, n in EXACT_CUTS:
+        if projected() <= BUDGET_S:
+            break
+        print(f"  cut: projected {projected():.0f} s > {BUDGET_S:.0f} s: {name} "
+              f"{sizes[name]} -> {n} samples")
+        sizes[name] = n
+    print(f"  exact-mode sizes {sizes}; projected total {projected():.0f} s "
+          f"(exact launch {launch_s:.2f} s at chunk 1024)")
+    return sizes
+
+
+def gate_phase(hk):
+    """tools/accuracy_gate.main on the bundled batch-8 synthetic caches,
+    seeds GATE_SEEDS, for each of GATE_METHODS: an asserted method's FAIL
+    exits the script; the others print their verdict."""
+    from bayesian_inference_trpl_tpu_torch.tools import accuracy_gate as gate
+    t0 = time.perf_counter()
+    caches = [gate.bundled_cache(POWER_SCAN["T"], 8, s, "synthetic") for s in GATE_SEEDS]
+    missing = [str(c) for c in caches if not c.exists()]
+    if missing:
+        raise FileNotFoundError(f"accuracy gate: exact caches missing: {missing}")
+    for method, asserted in GATE_METHODS:
+        lays = [hk.launch_layout(8, POWER_SCAN["L"], 8, s, 0, method != "fused_horizon")
+                for s in (1, 16, 32, 64)]
+        print(f"  gate layout {method} (8 samples, 8 experiments, strides 1/16/32/64): "
+              + "; ".join(f"{d['samples_per_block']} per block, {d['smem_per_block']} B"
+                          for d in lays))
+    reports = []
+    orig = gate.run_gate
+
+    def rec(*a, **kw):
+        reports.append(orig(*a, **kw))
+        return reports[-1]
+    gate.run_gate = rec
+    try:
+        for method, asserted in GATE_METHODS:
+            for seed in GATE_SEEDS:
+                argv = ["--profile", "synthetic", "--batch", "8", "--seed", str(seed),
+                        "--T", str(POWER_SCAN["T"]), "--method", method, "--device", "cuda"]
+                for k in hk.launches:
+                    hk.launches[k] = 0
+                try:
+                    gate.main(argv)
+                    verdict = "PASS"
+                except SystemExit as exc:
+                    if asserted or exc.code != 1:
+                        raise
+                    verdict = "FAIL (reported, not asserted)"
+                r = reports[-1]
+                print(f"  gate {method} s{seed}: {verdict}; rms 7-decade "
+                      f"{r['rms_log10_pl_max_meas']:.4e}, 10-decade {r['rms_log10_pl_max']:.4e}, "
+                      f"mean {r['rms_log10_pl_mean']:.4e}, full {r['rms_log10_pl_max_full']:.4e}; "
+                      f"non-converged {r['non_converged']}; fast {r['fast_seconds']} s; "
+                      f"launches {dict((k, v) for k, v in hk.launches.items() if v)}",
+                      flush=True)
+    finally:
+        gate.run_gate = orig
+    phase("gate", t0, "accuracy gate on exact_T80000_b8_s0/s1 (chord asserted)")
+
+
+def posterior_phase(hk, kind, num_samples, seed):
+    """tools/posterior_equivalence.main on the smoke's inputs (on-grid or
+    off-grid): the ladder against exact fixed-dt stepping; a FAIL exits.
+    Per chunk and curve the ladder launches once per phase and the exact
+    side once."""
+    from bayesian_inference_trpl_tpu_torch.tools import posterior_equivalence as pe
+    name = "posterior" + ("_offgrid" if kind else "")
+    rungs = len(ladder_schedule(False)[1]) - 1
+    cc = 3 * -(-num_samples // 1024)
+    want = ({"offgrid": (rungs + 2) * cc} if kind
+            else {"stride_1": 2 * cc, "stride_s": rungs * cc})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
+        cfg_path = write_main_inputs(tmp, num_samples, seed, bool(kind))
+        for k in hk.launches:
+            hk.launches[k] = 0
+        rc = pe.main(["--config", cfg_path, "--num-samples", str(num_samples),
+                      "--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"{name}: posterior equivalence FAIL")
+    got = {k: v for k, v in hk.launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    phase(name, t0, f"{num_samples} samples x 3 curves, ladder vs exact fixed-dt: PASS; "
+          f"launches {got}")
 
 
 def mode_of(r):
@@ -811,18 +1001,22 @@ class MainPaths:
     def launches(self):
         return dict(self.hk.launches, newton_step=self.nk.launches)
 
-    def run(self, kind, method, num_points, per_chunk_curve):
-        """Returns the run's wall seconds."""
+    def run(self, kind, method, num_points, per_chunk_curve, exact=False):
+        """Returns the run's wall seconds.  ``exact``: no ladder (exact
+        fixed-dt mode); its counts are kept as ``<kernel>_exact``."""
         suffix = {"fused_horizon_chord": "", "fused_horizon": "_full",
                   "coupled_newton_pallas": "_newton_step"}[method] + (
-                      "_offgrid" if kind else "")
+                      "_offgrid" if kind else "") + ("_exact" if exact else "")
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
-            cfg_path = write_main_inputs(tmp, num_points, self.seed, bool(kind), method)
+            cfg_path = write_main_inputs(tmp, num_points, self.seed, bool(kind), method,
+                                         exact)
             print(f"  main{suffix} path: method {method}; num_points reduced 131072 -> "
                   f"{num_points}; 3 curves x {POWER_SCAN['T']} steps; chunk 1024; float32"
                   + (f"; t = 0 plus {OFFGRID_POINTS} log-spaced times per curve"
-                     if kind else ""), flush=True)
+                     if kind else "")
+                  + ("; no ladder (exact fixed-dt), geometric predictor" if exact else ""),
+                  flush=True)
             phase(f"main{suffix}_inputs", t0, f"synthetic data and TOML in {tmp}")
             for k in self.hk.launches:
                 self.hk.launches[k] = 0
@@ -852,7 +1046,8 @@ class MainPaths:
                                      f"times, expected {want}")
         print(f"  launches as expected: {', '.join(f'{v} {k}' for k, v in per_chunk_curve.items())} "
               f"per chunk per curve, {chunk_curves} chunk-curves")
-        self.counts.update({k: run_counts[k] for k in per_chunk_curve})
+        self.counts.update({k + ("_exact" if exact else ""): run_counts[k]
+                            for k in per_chunk_curve})
         return main_s
 
 

@@ -306,3 +306,50 @@ def test_launch_layout_one_wave(cuda_device):
     assert lay["sms"] < 128 or lay["waves"] <= 1.0
     step = nk.launch_layout(1024, 128)
     assert step["samples_per_block"] == 4 and step["samples_per_sm"] >= 8
+
+
+def test_exact_mode_kernel_matches_plain(cuda_device):
+    """Exact fixed-dt mode (no ladder): solve takes one stride-1 launch
+    under the throughput chord profile; with the geometric predictor, on
+    a shortened horizon, float64, group = 1: conv, its, maxit, fulls and
+    execs equal, final N/P/E bitwise."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, torch.float64, T=256,
+                                         predictor="geometric")
+    calls = []
+
+    def rec(*args):
+        calls.append((args, hk.horizon_chord_plain(*args, group=1)))
+        return calls[-1][1]
+    solver.solve(mat, n0, p0, e0, cfg, obs=obs, record_pl=False, kernel=rec)
+    (args, ref), = calls
+    prm = args[-1]
+    assert (prm.stride, prm.offgrid_k, prm.chord, prm.pred_order) == (1, 0, True, 3)
+    assert (prm.settle_guard, prm.skip_tighten, prm.stall) == (
+        hk.CHORD_SETTLE_GUARD, hk.CHORD_SKIP_TIGHTEN, hk.CHORD_STALL)
+    out = hk.horizon_chord(*args)
+    torch.cuda.synchronize()
+    _check_phase(out, ref)
+    for k in ("n", "p", "e"):
+        assert torch.equal(getattr(out, k), getattr(ref, k)), k
+
+
+def test_launch_refuses_too_much_shared_memory(cuda_device):
+    """A sample keeps 2 x num_exp x slots likelihood accumulators in shared
+    memory.  A launch whose one sample does not fit a block raises with
+    the bytes it asks for and the bytes a block may take; the accuracy
+    gate's shapes (num_exp = batch = 8, stride <= 64) fit."""
+    S, num_exp = 64, 512
+    mat, n0, p0, e0, _, cfg = _problem(cuda_device, torch.float32, B=4, T=8)
+    sm = hk.shared_memory(128, num_exp, S)
+    assert sm["sample_bytes"] > sm["optin_bytes"]
+    obs = torch.zeros((num_exp, 2, S), dtype=torch.float32, device=cuda_device)
+    wtab = torch.zeros((3, S, 4), dtype=torch.float32, device=cuda_device)
+    prm = hk._params(cfg, FusedObs(values=obs, log_scale=0.0, min_val=1e-30), S, 0.0)
+    with pytest.raises(RuntimeError, match=(
+            rf"asks {sm['block_bytes']} B .* a block may take {sm['optin_bytes']} B"
+            r": one sample does not fit")):
+        hk.horizon_chord(mat, n0, p0, e0, obs, None, None, None, wtab, prm)
+    for stride in (1, 16, 32, 64):
+        fit = hk.shared_memory(128, 8, stride)
+        assert fit["samples_per_block"] == 4
+        assert fit["block_bytes"] <= fit["optin_bytes"]

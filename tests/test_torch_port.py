@@ -38,9 +38,11 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 19
+    assert len(mods) >= 23
     assert {"bayesian_inference_trpl_tpu_torch.ops.kernel_lib",
-            "bayesian_inference_trpl_tpu_torch.ops.newton_kernel"} <= set(mods)
+            "bayesian_inference_trpl_tpu_torch.ops.newton_kernel",
+            "bayesian_inference_trpl_tpu_torch.tools.accuracy_gate",
+            "bayesian_inference_trpl_tpu_torch.tools.posterior_equivalence"} <= set(mods)
 
 
 def test_port_sources_name_no_jax():
