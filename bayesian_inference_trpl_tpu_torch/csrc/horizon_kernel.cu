@@ -17,6 +17,10 @@
 // fused_horizon_chord), and FULL, _newton_solve (:127-223; method
 // fused_horizon), the shared check-then-solve exact Newton of
 // trpl_newton.cuh, with a Jacobian and a PCR reduce on every iteration.
+// Given an output for it, FULL at stride 1 also records the PL trace: the
+// JAX package's solve(record_pl=True), which runs both fused methods as the
+// coupled_newton XLA scan (models/solver.py:304-317, :367-432), the solve
+// of the interpolation fallback.
 //
 // Design: one warp per sample, lane l holding cells l + 32 j (see
 // trpl_newton.cuh), up to 4 samples per block; the whole phase runs in one
@@ -58,8 +62,10 @@ template <typename T> struct Args {
   int *conv, *its, *maxit;
   T *n_out, *p_out, *e_out;
   int *fulls, *execs;
+  T* pl_out;   // the PL trace (batch, T_steps / pl_stride + 1), or null
   int batch, L, T_steps, stride, offgrid_k, num_exp;
   int has_mask, normalize, ext_pl0, pred_order, max_iters, chord_budget, approx_inv;
+  int pl_stride;
   double tol, step_tol, log_scale, min_val, settle_guard, skip_accept_factor,
       skip_tighten, stall, step_tol_guard;
 };
@@ -171,6 +177,13 @@ __global__ void __launch_bounds__(128, JC > 0 ? 2 : 1)
   warp_reduce<1, false>(ln, v1, r1);
   const T pl00 = mp.rate * (r1[0] - T(L) * n0p0);
   const T pl0s = a.ext_pl0 ? a.pl0[b] : pl00;
+  // The PL trace (FULL at stride 1 only, the JAX package's
+  // solve(record_pl=True)): the nondimensional PL at t = 0 and after every
+  // pl_stride-th step, stored by lane 0.
+  constexpr bool kRecord = MODE == STRIDE1 && NEWTON == FULL;
+  T* const pl_row = kRecord && a.pl_out != nullptr
+                        ? a.pl_out + (size_t)b * (TS / a.pl_stride + 1) : nullptr;
+  if (kRecord && pl_row != nullptr && lane == 0) pl_row[0] = pl00;
   auto logpl = [&](T x) {
     if (a.normalize) return log10_of(nmax(x / pl0s, minv));
     return log10_of(nmax(x, minv)) + log_scale;
@@ -322,7 +335,10 @@ __global__ void __launch_bounds__(128, JC > 0 ? 2 : 1)
 
     // ---- Fused likelihood (see Mode).
     warp_reduce<1, false>(ln, v1, r1);
-    const T lp = logpl(mp.rate * (r1[0] - T(L) * n0p0));
+    const T pl_t = mp.rate * (r1[0] - T(L) * n0p0);
+    const T lp = logpl(pl_t);
+    if (kRecord && pl_row != nullptr && lane == 0 && (t + 1) % a.pl_stride == 0)
+      pl_row[(t + 1) / a.pl_stride] = pl_t;
     if (MODE == STRIDE1) {
       for (int e = lane; e < NE; e += 32) {
         const T err = lp - a.obs[(size_t)e * TS + t];
@@ -426,6 +442,9 @@ template <typename T, int MODE, int NEWTON>
 int launch(const Args<T>& a, cudaStream_t stream) {
   const int mode = a.offgrid_k > 0 ? OFFGRID : a.stride > 1 ? STRIDES : STRIDE1;
   if (mode != MODE || (MODE == OFFGRID && a.stride != 1)) return (int)cudaErrorInvalidValue;
+  if (a.pl_out != nullptr && (MODE != STRIDE1 || NEWTON != FULL || a.pl_stride < 1 ||
+                              a.T_steps % a.pl_stride != 0))
+    return (int)cudaErrorInvalidValue;
   if (a.batch == 0 || a.T_steps == 0) return 0;
   const SampleLayout<T> sl(a.L, a.num_exp, slots_of<MODE>(a.stride, a.offgrid_k));
   const int spb = samples_per_block(sl.bytes);
@@ -476,9 +495,9 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
           const void* obs, const void* msk, const void* vmask, const void* pl0,
           const void* wtab, const void* bdf, void* sse, void* esum, void* conv,
           void* its, void* maxit, void* n_out, void* p_out, void* e_out,
-          void* fulls, void* execs, int batch, int L, int T_steps, int stride,
+          void* fulls, void* execs, void* pl_out, int batch, int L, int T_steps, int stride,
           int offgrid_k, int num_exp, int has_mask, int normalize, int ext_pl0, int pred_order,
-          int max_iters, int chord_budget, int approx_inv, double tol,
+          int max_iters, int chord_budget, int approx_inv, int pl_stride, double tol,
           double step_tol, double log_scale, double min_val, double settle_guard,
           double skip_accept_factor, double skip_tighten, double stall,
           double step_tol_guard, void* stream) {
@@ -489,12 +508,12 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
   a.sse = (T*)sse; a.esum = (T*)esum;
   a.conv = (int*)conv; a.its = (int*)its; a.maxit = (int*)maxit;
   a.n_out = (T*)n_out; a.p_out = (T*)p_out; a.e_out = (T*)e_out;
-  a.fulls = (int*)fulls; a.execs = (int*)execs;
+  a.fulls = (int*)fulls; a.execs = (int*)execs; a.pl_out = (T*)pl_out;
   a.batch = batch; a.L = L; a.T_steps = T_steps; a.stride = stride;
   a.offgrid_k = offgrid_k; a.num_exp = num_exp;
   a.has_mask = has_mask; a.normalize = normalize; a.ext_pl0 = ext_pl0;
   a.pred_order = pred_order; a.max_iters = max_iters; a.chord_budget = chord_budget;
-  a.approx_inv = approx_inv;
+  a.approx_inv = approx_inv; a.pl_stride = pl_stride;
   a.tol = tol; a.step_tol = step_tol; a.log_scale = log_scale; a.min_val = min_val;
   a.settle_guard = settle_guard; a.skip_accept_factor = skip_accept_factor;
   a.skip_tighten = skip_tighten; a.stall = stall; a.step_tol_guard = step_tol_guard;
@@ -508,19 +527,19 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
       const void *obs, const void *msk, const void *vmask, const void *pl0,     \
       const void *wtab, const void *bdf, void *sse, void *esum, void *conv,     \
       void *its, void *maxit, void *n_out, void *p_out, void *e_out,            \
-      void *fulls, void *execs, int batch, int L, int T_steps, int stride,      \
-      int offgrid_k, int num_exp, int has_mask, int normalize, int ext_pl0, int pred_order,    \
-      int max_iters, int chord_budget, int approx_inv, double tol,              \
+      void *fulls, void *execs, void *pl_out, int batch, int L, int T_steps,    \
+      int stride, int offgrid_k, int num_exp, int has_mask, int normalize,      \
+      int ext_pl0, int pred_order, int max_iters, int chord_budget,             \
+      int approx_inv, int pl_stride, double tol,                                \
       double step_tol, double log_scale, double min_val, double settle_guard,   \
       double skip_accept_factor, double skip_tighten, double stall,             \
       double step_tol_guard, void *stream
 #define TRPL_ENTRY_CALL                                                          \
   mat, n0, p0, e0, obs, msk, vmask, pl0, wtab, bdf, sse, esum, conv, its, maxit, \
-      n_out, p_out, e_out, fulls, execs, batch, L, T_steps, stride, offgrid_k,   \
-      num_exp,                                                                   \
-      has_mask, normalize, ext_pl0, pred_order, max_iters, chord_budget,         \
-      approx_inv, tol, step_tol, log_scale, min_val, settle_guard,               \
-      skip_accept_factor, skip_tighten, stall, step_tol_guard, stream
+      n_out, p_out, e_out, fulls, execs, pl_out, batch, L, T_steps, stride,      \
+      offgrid_k, num_exp, has_mask, normalize, ext_pl0, pred_order, max_iters,   \
+      chord_budget, approx_inv, pl_stride, tol, step_tol, log_scale, min_val,    \
+      settle_guard, skip_accept_factor, skip_tighten, stall, step_tol_guard, stream
 
 // Plain C interface, loaded with ctypes by ops/horizon_kernel.py: one
 // launcher per Newton body (chord, full), mode (stride 1, stride S > 1,

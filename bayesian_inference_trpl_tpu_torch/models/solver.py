@@ -3,9 +3,11 @@
 ``solve`` advances a batch of simulations over a fixed-dt horizon.  With
 ``method="fused_horizon_chord"`` (chord Newton) or ``"fused_horizon"``
 (full Newton) and fused observations the whole horizon is one launch of
-the horizon kernel (ops/horizon_kernel.py); otherwise a Python step loop
-runs coupled Newton step by step: models/newton.coupled_newton_step, or
-for ``method="coupled_newton_pallas"`` one launch of the per-step Newton
+the horizon kernel (ops/horizon_kernel.py); asked only for the PL trace,
+either fused method is one launch of the kernel's full Newton recording it
+(the JAX package runs them as coupled_newton there).  Otherwise a Python
+step loop runs coupled Newton step by step: models/newton.coupled_newton_step,
+or for ``method="coupled_newton_pallas"`` one launch of the per-step Newton
 kernel per step (ops/newton_kernel.py).
 
 The likelihood is fused into the time loop: the loop carries running sums
@@ -58,7 +60,8 @@ class FusedObs(NamedTuple):
 
 
 class SolveResult(NamedTuple):
-    pl: Optional[torch.Tensor]        # (batch, T + 1) nondim PL, if recorded
+    pl: Optional[torch.Tensor]        # (batch, T // pl_stride + 1) nondim PL,
+    #                                   if recorded
     n: torch.Tensor                   # final N (batch, L)
     p: torch.Tensor
     e: torch.Tensor
@@ -164,10 +167,13 @@ def init_history(n_init, p_init, e_init):
 
 
 def _check_supported(cfg: SolverConfig):
-    if cfg.pl_stride != 1 or cfg.record_state_stride is not None or cfg.record_iters:
+    if cfg.record_state_stride is not None or cfg.record_iters:
         raise NotImplementedError(
-            "pl_stride > 1, record_state_stride and record_iters are not "
-            "ported yet: ROADMAP A14")
+            "record_state_stride and record_iters are not ported yet: "
+            "ROADMAP A14")
+    if cfg.num_steps % cfg.pl_stride:
+        raise ValueError(f"num_steps={cfg.num_steps} not divisible by "
+                         f"pl_stride={cfg.pl_stride}")
     from ..utils.validate import SOLVER_METHODS, validate_solver
     if cfg.method not in SOLVER_METHODS:
         validate_solver(cfg.method, cfg.predictor)
@@ -181,17 +187,23 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
     Args:
       mat_nd: (batch, 12) nondimensionalized material parameters.
       n_init/p_init/e_init: (batch, L) initial state (E on edges 0..L-1).
-      obs: optional fused observations (enables in-loop likelihood).
-      record_pl: emit the PL trace.
+      obs: optional fused observations (enables in-loop likelihood), one
+        column per recorded point: (num_exp, T // pl_stride + 1).
+      record_pl: emit the PL trace, at t = 0 and after every cfg.pl_stride
+        steps; the Newton failures of every step count.
       kernel: the horizon kernel's entry for fused solves (default
         ops.horizon_kernel.horizon_chord); tests pass its plain version.
     """
     _check_supported(cfg)
-    if (cfg.method in ("fused_horizon", "fused_horizon_chord") and obs is not None
-            and not record_pl):
-        from ..ops.horizon_kernel import solve_horizon_fused
-        return solve_horizon_fused(mat_nd, n_init, p_init, cfg, obs,
-                                   e_init=e_init, kernel=kernel)
+    if cfg.method in ("fused_horizon", "fused_horizon_chord"):
+        if obs is not None and not record_pl and cfg.pl_stride == 1:
+            from ..ops.horizon_kernel import solve_horizon_fused
+            return solve_horizon_fused(mat_nd, n_init, p_init, cfg, obs,
+                                       e_init=e_init, kernel=kernel)
+        if obs is None and record_pl:
+            from ..ops.horizon_kernel import solve_horizon_record
+            return solve_horizon_record(mat_nd, n_init, p_init, cfg,
+                                        e_init=e_init, kernel=kernel)
 
     mp = MatParams.from_array(mat_nd)
     batch, L = n_init.shape
@@ -211,10 +223,16 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
     samp_it = torch.zeros(batch, dtype=torch.int32, device=dev)
     max_it = torch.zeros((), dtype=torch.int32, device=dev)
     pls = [pl0]
-    for j in range(cfg.num_steps):
-        Nn, Pn, _, iters, ok = bdf_step(j, nh, ph, eh, mp, cfg, tol, step_tol)
+    stride = cfg.pl_stride
+    for t in range(cfg.num_steps):
+        Nn, Pn, _, iters, ok_t = bdf_step(t, nh, ph, eh, mp, cfg, tol, step_tol)
         samp_it = samp_it + iters
         max_it = torch.maximum(max_it, iters.max())
+        ok = ok_t if t % stride == 0 else ok & ok_t
+        if (t + 1) % stride:
+            continue
+        # Recorded point j + 1, after pl_stride steps (JAX solver.py:367-407).
+        j = t // stride
         pl = pl_observable(Nn, Pn, mp)
         if record_pl:
             pls.append(pl)

@@ -16,6 +16,12 @@ by ``_call`` at :761-902) in its three modes, each with either Newton body
   per-slot Lagrange weights over the same 4-node log-PL window, with a
   liveness row in place of the pad-only rule.
 
+Full Newton at stride 1 also records the PL trace every ``pl_stride``
+steps (``solve_horizon_record``): the JAX package's ``solve(record_pl=True)``,
+which runs both fused methods as its coupled_newton XLA scan
+(models/solver.py:304-317 there), over the whole horizon of the
+interpolation fallback.
+
 Per step, for every sample: rolling 6-slot N/P/E histories with the BDF1->5
 ramp, the extrapolated predictor with positivity fallback, Newton (chord:
 a cheap residual check, then either a skip, chord iterations on a cached
@@ -83,7 +89,8 @@ _PREDICTOR = {v: k for k, v in PRED_ORDER.items()}
 # horizon_chord where it launches; chip_smoke.py zeroes them around each
 # main path.
 launches = {"stride_1": 0, "stride_s": 0, "offgrid": 0,
-            "stride_1_full": 0, "stride_s_full": 0, "offgrid_full": 0}
+            "stride_1_full": 0, "stride_s_full": 0, "offgrid_full": 0,
+            "stride_1_record": 0}
 
 
 def _chord_knobs(cfg: SolverConfig):
@@ -113,6 +120,8 @@ class HorizonParams(NamedTuple):
     offgrid_k: int = 0        # K > 0: off-grid mode with K slots per step
     chord: bool = True        # chord Newton; False: full Newton (the chord
     #                           knobs above are then unused)
+    pl_stride: int = 0        # P > 0: record the PL trace every P steps (full
+    #                           Newton at stride 1 only)
 
 
 class HorizonOut(NamedTuple):
@@ -127,6 +136,8 @@ class HorizonOut(NamedTuple):
     fulls: torch.Tensor       # (batch,) int32 Jacobian refreshes of the group
     execs: torch.Tensor       # (batch,) int32 executed iterations of the group
     #                           (full Newton: both equal its)
+    pl: Optional[torch.Tensor] = None   # (batch, T // pl_stride + 1)
+    #                           nondimensional PL, if recorded
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +291,15 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
         [a*K + k] (models/offgrid.build_offgrid_tables).
       group: samples per shared chord decision (see module docstring);
         full Newton (``prm.chord`` False) takes its decisions per sample.
+
+    With ``prm.pl_stride`` P > 0 the PL (the value the likelihood logs)
+    is recorded at t = 0 and after every P-th step.
     """
     batch, L = n0.shape
     S = prm.stride
     K = prm.offgrid_k
     num_exp, T = obs.shape[0], obs.shape[1]
+    _check_record(prm, T)
     mp = MatParams.from_array(mat)
     tol = _scalar(prm.tol, n0)
     step_tol = _scalar(prm.step_tol, n0)
@@ -317,6 +332,7 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     maxit = torch.zeros_like(its)
     if S > 1 or K:
         lpw = [torch.zeros_like(pl00)] * 3 + [logpl(pl00)]
+    pls = [pl00] if prm.pl_stride else None
 
     for t in range(T):
         if prm.chord:
@@ -330,7 +346,10 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
         its = its + iters
         maxit = torch.maximum(maxit, iters)
 
-        lp = logpl(mp.rate * ((Nn * Pn).sum(-1) - L * n0p0))
+        pl_t = mp.rate * ((Nn * Pn).sum(-1) - L * n0p0)
+        if pls is not None and (t + 1) % prm.pl_stride == 0:
+            pls.append(pl_t)
+        lp = logpl(pl_t)
         w_any = None
         if K:
             # Off-grid slots: the 4-node window at K offsets per experiment,
@@ -389,7 +408,18 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     fulls, execs = ((chord._rows(chord.fulls), chord._rows(chord.execs))
                     if prm.chord else (its, its))
     return HorizonOut(sse, esum, conv, its, maxit, nh[k], ph[k], eh[k],
-                      fulls, execs)
+                      fulls, execs, None if pls is None else torch.stack(pls, 1))
+
+
+def _check_record(prm: HorizonParams, T: int):
+    """Raise unless a PL trace, if asked for, is one the kernel records:
+    full Newton at stride 1, every pl_stride steps of T."""
+    if prm.pl_stride and (prm.chord or prm.stride != 1 or prm.offgrid_k
+                          or prm.pl_stride < 0 or T % prm.pl_stride):
+        raise ValueError(f"horizon_chord: the PL trace is recorded by full Newton "
+                         f"at stride 1 every pl_stride steps of T; got chord "
+                         f"{prm.chord}, stride {prm.stride}, K {prm.offgrid_k}, "
+                         f"pl_stride {prm.pl_stride}, T {T}")
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +427,7 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
 # ---------------------------------------------------------------------------
 
 _VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = [_VP] * 20 + [_CI] * 13 + [_CD] * 9 + [_VP]
+_ARGTYPES = [_VP] * 21 + [_CI] * 14 + [_CD] * 9 + [_VP]
 
 
 def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
@@ -429,6 +459,7 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
                          f"[32, 1024], got {L}")
     S, K = prm.stride, prm.offgrid_k
     num_exp, T = obs.shape[0], obs.shape[1]
+    _check_record(prm, T)
     _check("mat", mat, dtype, (batch, 12), dev)
     for name, x in (("n0", n0), ("p0", p0), ("e0", e0)):
         _check(name, x, dtype, (batch, L), dev)
@@ -456,6 +487,10 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     ints = [torch.empty(batch, dtype=torch.int32, device=dev) for _ in range(5)]
     conv, its, maxit, fulls, execs = ints
     n, p, e = (torch.empty_like(n0) for _ in range(3))
+    # The trace is allocated once per launch; one that does not fit on the
+    # card raises (torch.OutOfMemoryError) and the batch is not cut here.
+    pl = (torch.empty((batch, T // prm.pl_stride + 1), dtype=dtype, device=dev)
+          if prm.pl_stride else None)
     mode, sym = (("offgrid", "offgrid") if K else ("stride_1", "stride1") if S == 1
                  else ("stride_s", "strides"))
     fn = kernel_lib.function("trpl_horizon_{}_{}_{}".format(
@@ -464,19 +499,20 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     rc = fn(_ptr(mat), _ptr(n0), _ptr(p0), _ptr(e0), _ptr(obs), _ptr(msk),
             _ptr(vmask), _ptr(pl0), _ptr(wtab), _ptr(bdf),
             _ptr(sse), _ptr(esum), _ptr(conv), _ptr(its), _ptr(maxit),
-            _ptr(n), _ptr(p), _ptr(e), _ptr(fulls), _ptr(execs),
+            _ptr(n), _ptr(p), _ptr(e), _ptr(fulls), _ptr(execs), _ptr(pl),
             batch, L, T, S, K, num_exp, int(msk is not None and not K),
             int(prm.normalize), int(pl0 is not None), int(prm.pred_order),
             int(prm.max_iters), int(prm.chord_budget), int(prm.approx_inv),
-            float(prm.tol), float(prm.step_tol), float(prm.log_scale),
+            int(prm.pl_stride), float(prm.tol), float(prm.step_tol), float(prm.log_scale),
             float(prm.min_val), float(prm.settle_guard),
             float(prm.skip_accept_factor), float(prm.skip_tighten),
             float(prm.stall), float(prm.step_tol_guard),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(_launch_error(rc, dtype, L, num_exp, K or S))
-    launches[mode if prm.chord else mode + "_full"] += 1
-    return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs)
+    launches[mode if prm.chord else "stride_1_record" if pl is not None
+             else mode + "_full"] += 1
+    return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs, pl)
 
 
 def shared_memory(L: int, num_exp: int, slots: int, dtype=torch.float32) -> dict:
@@ -571,6 +607,27 @@ def solve_horizon_fused(mat_nd, n_init, p_init, cfg: SolverConfig,
         m0 = mask[:, 0:1]
         return _result(out, out.sse + m0 * e0t ** 2, out.esum + m0 * e0t)
     return _result(out, out.sse + e0t ** 2, out.esum + e0t)
+
+
+def solve_horizon_record(mat_nd, n_init, p_init, cfg: SolverConfig, e_init=None,
+                         kernel=None) -> SolveResult:
+    """The whole horizon of cfg.num_steps fine steps in one launch of full
+    Newton at stride 1, recording the PL trace every cfg.pl_stride steps
+    and scoring no observations: the JAX package's ``solve(record_pl=True)``
+    of a fused method, which it runs as coupled_newton.  Full Newton here
+    is coupled_newton's step (models/solver.bdf_step) whatever cfg.method
+    names; every step's Newton failure fails its sample."""
+    kernel = horizon_chord if kernel is None else kernel
+    e0 = torch.zeros_like(n_init) if e_init is None else e_init
+    prm = HorizonParams(
+        stride=1, tol=cfg.tol,
+        step_tol=0.0 if cfg.step_tol is None else float(cfg.step_tol),
+        log_scale=0.0, min_val=0.0, max_iters=int(cfg.max_iters), normalize=False,
+        pred_order=PRED_ORDER[cfg.predictor], settle_guard=0.0, skip_tighten=1.0,
+        stall=0.0, chord=False, pl_stride=int(cfg.pl_stride))
+    no_obs = n_init.new_empty((0, cfg.num_steps))
+    out = kernel(mat_nd, n_init, p_init, e0, no_obs, None, None, None, None, prm)
+    return _result(out, None, None)._replace(pl=out.pl)
 
 
 def solve_coarse_phase_fused(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
 FLOAT_MIN = sys.float_info.min
@@ -22,6 +23,29 @@ def fastlog(pl: torch.Tensor, min_val: float = FLOAT_MIN) -> torch.Tensor:
     floor = max(float(torch.tensor(min_val, dtype=pl.dtype)),
                 torch.finfo(pl.dtype).tiny)
     return torch.log10(torch.clamp_min(pl, floor))
+
+
+def interp_pl(sim_times: torch.Tensor, pl: torch.Tensor,
+              obs_times: torch.Tensor) -> torch.Tensor:
+    """Linear time interpolation of simulated PL (batch, n) at the nodes
+    ``sim_times`` (n,) onto ``obs_times`` (M,), batched: (batch, M).
+    Times before the first node or after the last give NaN, as scipy
+    ``griddata`` does (reference: bayeslib.py:182-191).  The arithmetic is
+    ``jnp.interp``'s, which the JAX package calls: i = clip(searchsorted(
+    right), 1, n - 1), f = fp[i-1] + (x - xp[i-1]) / dx * df, and fp[i-1]
+    where dx is within spacing(eps) of 0."""
+    n = sim_times.shape[0]
+    i = torch.searchsorted(sim_times, obs_times, right=True).clamp(1, n - 1)
+    x0 = sim_times[i - 1]
+    dx = sim_times[i] - x0
+    delta = obs_times - x0
+    f0 = pl[:, i - 1]
+    df = pl[:, i] - f0
+    eps = np.spacing(torch.finfo(sim_times.dtype).eps)
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, f0, f0 + (delta / torch.where(dx0, 1.0, dx)) * df)
+    out = (obs_times < sim_times[0]) | (obs_times > sim_times[-1])
+    return torch.where(out, torch.nan, f)
 
 
 def sse_terms(pl_log: torch.Tensor, values: torch.Tensor):

@@ -1,17 +1,21 @@
 """Chunked single-device inference runner.
 
-One chunk program (solver + fused likelihood) evaluates a chunk of samples
-on the device; the host loops over chunks, bounding device memory like
-the reference's ``sims_per_gpu`` batching (bayeslib.py:131-146), and
-accumulates per-sample log-likelihoods.  The next chunk is enqueued
-before the previous one is read back, so host-side preparation overlaps
-device work.  More than one device is ROADMAP A15.
+One chunk program (solver + fused likelihood, or solver + interpolated
+likelihood) evaluates a chunk of samples on the device; the host loops
+over chunks, bounding device memory like the reference's ``sims_per_gpu``
+batching (bayeslib.py:131-146), and accumulates per-sample
+log-likelihoods.  The next chunk is enqueued before the previous one is
+read back, so host-side preparation overlaps device work.  More than one
+device is ROADMAP A15.
 
 There is no retry pass for non-converged samples (the JAX package's
 ``_retry_nonconverged``): every path of this port takes its chord
 decisions per sample, so a sample's result does not depend on its
 batch-mates and a failure-only batch repeats the failure bit for bit
-(tests/test_torch_runner.py).
+(tests/test_torch_runner.py).  Hence resume (``start_chunk``) needs no
+curve-start repair baseline (the JAX package's ``P_start``): a sample that
+failed in a completed chunk is already NaN in the checkpointed
+accumulator, and nothing would repair it.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from ..models.driver import SimParams, initial_excess_density, pl_log_scale
 from ..models.offgrid import OffGridTables, solve_offgrid
 from ..models.solver import FusedObs, SolverConfig, solve
 from ..models.twophase import solve_multiphase
-from ..ops.likelihood import FLOAT_MIN, log_likelihood_from_terms
+from ..ops.likelihood import (FLOAT_MIN, fastlog, interp_pl,
+                              log_likelihood_from_terms)
 
 logger = logging.getLogger(__name__)
 
@@ -90,6 +95,42 @@ def _chunk_likelihood_offgrid(mat_nd, mag, dn, tables: OffGridTables,
     return ll, res.converged
 
 
+def _chunk_likelihood_interp(mat_nd, mag, dn, obs_times, obs_values, obs_mask,
+                             sim_times, pl_scale, *, cfg: SolverConfig,
+                             normalize: bool, log_pl: bool):
+    """Chunk program for the INTERPOLATION fallback: a full-horizon solve
+    recording PL, linear interpolation on the device onto each
+    experiment's times, SSE likelihood (reference main loop:
+    bayeslib.py:150-201).  Returns (P_chunk (num_exp, chunk),
+    converged (chunk,)).
+
+    ``obs_times``/``obs_values``/``obs_mask`` are (num_exp, M), padded to
+    the longest experiment with time 0 and weight 0 (a valid interpolation
+    point, zeroed before the sums); the mask holds the per-point weights
+    (1/sigma^2 for the sigma-weighted SSE).  Observation times beyond the
+    simulated horizon interpolate to NaN and poison that experiment's
+    likelihood, the reference's griddata semantics, kept on purpose.
+    """
+    n0 = mat_nd[:, 0:1] + dn[None, :]
+    p0 = mat_nd[:, 1:2] + dn[None, :]
+    e0 = torch.zeros_like(n0)
+    res = solve(mat_nd, n0, p0, e0, cfg, obs=None, record_pl=True)
+    pl = res.pl * pl_scale
+    if normalize:
+        pl = pl / pl[:, 0:1]
+    if log_pl:
+        pl = fastlog(pl)
+    ll = []
+    for times, values, m in zip(obs_times, obs_values, obs_mask):
+        pl_i = interp_pl(sim_times, pl, times)                   # (chunk, M)
+        e = torch.where(m[None, :] > 0, pl_i - values[None, :], 0.0)
+        sse = (m[None, :] * e * e).sum(-1)
+        esum = (m[None, :] * e).sum(-1)
+        ll.append(log_likelihood_from_terms(sse, esum, m.sum(), mag))
+    ll = torch.where(res.converged[None, :], torch.stack(ll), torch.nan)
+    return ll, res.converged
+
+
 class Runner:
     """Chunked executor on one device (``cuda`` unless told ``cpu``)."""
 
@@ -113,7 +154,9 @@ class Runner:
                   normalize: bool = False, dtype=torch.float32,
                   progress: Optional[Callable[[int, int], None]] = None,
                   chunk_done: Optional[Callable[[int, np.ndarray], None]] = None,
-                  out: Optional[np.ndarray] = None, obs_mask=None):
+                  out: Optional[np.ndarray] = None, obs_mask=None,
+                  start_chunk: int = 0, sample_idx=None,
+                  chunk_index_offset: int = 0):
         """Evaluate the log-likelihood of every sample in X for one
         excitation curve against observations on the simulation grid.
 
@@ -124,6 +167,15 @@ class Runner:
           out: optional (num_exp, n) accumulator to ADD likelihoods into
             (NaN marks non-converged samples and propagates).
           obs_mask: optional (num_exp, sim.num_pl) per-point weights.
+          start_chunk: resume point; earlier chunks are left untouched in
+            ``out`` (their contributions come from the checkpoint) and
+            their samples count as converged (see the module docstring).
+          sample_idx: optional global indices of the samples to run (the
+            adaptive tau routing's subsets); chunk columns add into
+            ``out[:, sample_idx[...]]``.
+          chunk_index_offset: added to the chunk index given to
+            ``chunk_done``, so that two passes over subsets of one curve
+            share one checkpoint chunk sequence.
 
         Returns (out (num_exp, n), converged (n,)).
         """
@@ -136,13 +188,14 @@ class Runner:
             return _chunk_likelihood(mat_c, mag_c, dn, obs, log_scale, mask,
                                      **statics)
         return self._run(chunk_fn, X, sim, ini_par, len(obs_log_values), dtype,
-                         progress, chunk_done, out)
+                         progress, chunk_done, out, start_chunk, sample_idx,
+                         chunk_index_offset)
 
     def run_curve_offgrid(self, X, sim: SimParams, ini_par, tables: OffGridTables,
                           schedule, normalize: bool = False, dtype=torch.float32,
                           progress: Optional[Callable[[int, int], None]] = None,
                           chunk_done: Optional[Callable[[int, np.ndarray], None]] = None,
-                          out: Optional[np.ndarray] = None):
+                          out: Optional[np.ndarray] = None, start_chunk: int = 0):
         """Off-grid variant of :meth:`run_curve`: observation times are
         scored inside the solve from precomputed slot tables
         (models/offgrid.py); arguments and returns as :meth:`run_curve`.
@@ -164,19 +217,67 @@ class Runner:
             return _chunk_likelihood_offgrid(mat_c, mag_c, dn, dev_tables,
                                              log_scale, **statics)
         return self._run(chunk_fn, X, sim, ini_par, len(tables.v0), dtype,
-                         progress, chunk_done, out)
+                         progress, chunk_done, out, start_chunk)
+
+    def run_curve_interp(self, X, sim: SimParams, ini_par, obs_times, obs_values,
+                         normalize: bool = False, log_pl: bool = True,
+                         obs_weights=None, dtype=torch.float32,
+                         progress: Optional[Callable[[int, int], None]] = None,
+                         chunk_done: Optional[Callable[[int, np.ndarray], None]] = None,
+                         out: Optional[np.ndarray] = None, start_chunk: int = 0):
+        """Interpolation-fallback variant of :meth:`run_curve`: a solve over
+        sim's whole horizon recording PL every sim.pl_stride steps,
+        interpolated on the device onto each experiment's (possibly
+        off-grid, possibly beyond-horizon) times, the reference's main loop
+        (bayeslib.py:150-201); arguments and returns as :meth:`run_curve`.
+
+        Args:
+          obs_times/obs_values: per-experiment lists of 1-D arrays (ragged;
+            padded here to the longest with time-0, weight-0 slots).
+            Values are in the loaded observation scale (log10 when
+            sim_flags.log_pl, matching ``log_pl``).
+          obs_weights: optional per-experiment per-point weights (1/sigma^2
+            for sim_flags.use_uncertainty); default 1.
+        """
+        num_exp = len(obs_times)
+        M = max(len(t) for t in obs_times)
+        times_p = np.zeros((num_exp, M))
+        values_p = np.zeros((num_exp, M))
+        mask_p = np.zeros((num_exp, M))
+        for e in range(num_exp):
+            m = len(obs_times[e])
+            times_p[e, :m] = obs_times[e]
+            values_p[e, :m] = obs_values[e]
+            mask_p[e, :m] = 1.0 if obs_weights is None else obs_weights[e]
+        # Times go to the device in the compute dtype, as the JAX package
+        # places them: the interpolation's rounding is part of the result.
+        times_d, values_d, mask_d = (self._put(a, dtype)
+                                     for a in (times_p, values_p, mask_p))
+        sim_times = self._put(sim.pl_times, dtype)
+        pl_scale = torch.as_tensor(1.0 / (sim.dx ** 2 * sim.dt), dtype=dtype,
+                                   device=self.device)
+        statics = dict(cfg=sim.solver_config(), normalize=normalize, log_pl=log_pl)
+
+        def chunk_fn(mat_c, mag_c, dn, _log_scale):
+            return _chunk_likelihood_interp(mat_c, mag_c, dn, times_d, values_d,
+                                            mask_d, sim_times, pl_scale, **statics)
+        return self._run(chunk_fn, X, sim, ini_par, num_exp, dtype, progress,
+                         chunk_done, out, start_chunk)
 
     def _run(self, chunk_fn, X, sim: SimParams, ini_par, num_exp: int, dtype,
-             progress, chunk_done, out):
-        """The chunk loop shared by both curve kinds."""
-        n = len(X)
-        mat_nd_all = physics.nondimensionalize(np.asarray(X)[:, :12], sim.dx, sim.dt)
-        mag_all = np.asarray(X)[:, 12]
+             progress, chunk_done, out, start_chunk=0, sample_idx=None,
+             chunk_index_offset=0):
+        """The chunk loop shared by every curve kind, from chunk
+        ``start_chunk`` of the samples ``sample_idx`` (default all)."""
+        X_sub = np.asarray(X) if sample_idx is None else np.asarray(X)[sample_idx]
+        n = len(X_sub)
+        mat_nd_all = physics.nondimensionalize(X_sub[:, :12], sim.dx, sim.dt)
+        mag_all = X_sub[:, 12]
         dn = initial_excess_density(sim, ini_par, "points", dtype=dtype,
                                     device=self.device)
         log_scale = pl_log_scale(sim)
         if out is None:
-            out = np.zeros((num_exp, n))
+            out = np.zeros((num_exp, len(X)))
         conv = np.ones(n, dtype=bool)
 
         def dispatch(mat_c, mag_c):
@@ -189,16 +290,18 @@ class Runner:
             ok = ok.cpu().numpy()
             self.timers.solver_time += time.perf_counter() - t0
             t0 = time.perf_counter()
-            out[:, lo:lo + size] += ll[:, :size]
+            cols = (slice(lo, lo + size) if sample_idx is None
+                    else sample_idx[lo:lo + size])
+            out[:, cols] += ll[:, :size]
             conv[lo:lo + size] = ok[:size]
             if chunk_done is not None:
-                chunk_done(ci, ll[:, :size])
+                chunk_done(ci + chunk_index_offset, ll[:, :size])
             self.timers.misc_time += time.perf_counter() - t0
 
         # The next chunk is enqueued before the previous one is read back.
         n_chunks = -(-n // self.chunk)
         pending = None
-        for ci in range(n_chunks):
+        for ci in range(start_chunk, n_chunks):
             lo = ci * self.chunk
             hi = min(lo + self.chunk, n)
             if progress is not None:
@@ -211,4 +314,8 @@ class Runner:
             pending = (ci, lo, hi - lo, ll, ok)
         if pending is not None:
             harvest(*pending)
+        if sample_idx is not None:
+            conv_all = np.ones(len(X), dtype=bool)
+            conv_all[sample_idx] = conv
+            conv = conv_all
         return out, conv

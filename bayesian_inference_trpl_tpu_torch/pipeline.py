@@ -5,13 +5,17 @@ The counterpart of the reference driver chain
 observations and excitations, draw the sample grid, evaluate the
 log-likelihood of every sample against every experiment and excitation
 curve on the device, and export BAYRAN (X, P) arrays.  The likelihood is
-fused into the solver: on the simulation grid directly, off it (log-spaced
-times) through slot tables of dense-output weights; the branches the JAX
-package has beyond that raise NotImplementedError naming their ROADMAP
-item.
+fused into the solver: on the simulation grid directly (optionally with
+the short-tau_n samples on a finer ladder), off it (log-spaced times)
+through slot tables of dense-output weights; curves that cannot be fused
+take the reference's interpolation of a recorded PL trace.  A run
+checkpoints after every chunk and resumes from its checkpoint.  More than
+one device and ``device.profile_dir`` raise NotImplementedError naming
+their ROADMAP items.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Optional
@@ -103,8 +107,8 @@ def plan_offgrid(cfg: InferenceConfig, sim: SimParams, e_data, ic_num: int):
 
     Returns None when the curve cannot be fused off-grid: observation times
     beyond the simulated horizon or before 0, or tables that
-    build_offgrid_tables refuses (a duplicate t=0 point).  Those curves need
-    the interpolation fallback (ROADMAP A12)."""
+    build_offgrid_tables refuses (a duplicate t=0 point).  Those curves take
+    the interpolation fallback (Runner.run_curve_interp)."""
     from .models.offgrid import build_offgrid_tables
 
     num_exp = len(e_data)
@@ -129,9 +133,35 @@ def plan_offgrid(cfg: InferenceConfig, sim: SimParams, e_data, ic_num: int):
                                       weights=weights)
     except ValueError as exc:
         logging.getLogger(__name__).warning(
-            "off-grid fusion unavailable for curve %d (%s)", ic_num, exc)
+            "off-grid fusion unavailable for curve %d (%s); falling back to "
+            "the interpolated likelihood", ic_num, exc)
         return None
     return sim_c, schedule, tables
+
+
+def _adaptive_split(cfg: InferenceConfig, sim_c: SimParams, X):
+    """Adaptive tau routing (grid.adaptive_fine_tau): split the sample
+    indices into (bulk, fine bucket) and build the fine bucket's SimParams
+    (finer fine phase, tighter stride cap).  Returns None when routing is
+    off, the curve is not on the ladder, or no sample falls in the bucket.
+
+    The deep-window ladder error concentrates in the tau_n-bottom samples
+    (coarse strides against a ~25 ns decay); a 512/16/32 ladder for them
+    cut the JAX package's 10-decade max rms from 5.90e-4 to 1.18e-4
+    (docs/PRECISION.md:322-333).  The split is a function of X and the
+    config alone, so a resumed run replays it."""
+    tau = cfg.grid.adaptive_fine_tau
+    if not tau or sim_c.fast_phases is None:
+        return None
+    fine_sel = np.asarray(X)[:, 9] < float(tau)        # tau_n [ns]
+    if not fine_sel.any():
+        return None
+    g = cfg.grid
+    sim_f = dataclasses.replace(
+        sim_c, pl_stride=1,
+        fast_fine_steps=min(int(g.adaptive_fine_steps), sim_c.T // 2),
+        fast_max_stride=min(int(g.adaptive_max_stride), sim_c.fast_max_stride))
+    return np.where(~fine_sel)[0], np.where(fine_sel)[0], sim_f
 
 
 def sim_params_for_curve(cfg: InferenceConfig, ic_num: int, num_curves: int) -> SimParams:
@@ -191,6 +221,10 @@ SOLVER_ROUTES = {
     "coupled_newton_pallas": "per-step Newton kernel, one launch per BDF step",
     "coupled_newton": "coupled-Newton step loop, no kernel",
 }
+# The same for the interpolation fallback's solve(record_pl=True).
+_RECORD_LAUNCH = "horizon kernel, full Newton recording PL, one launch over the whole horizon"
+RECORD_ROUTES = dict(SOLVER_ROUTES, fused_horizon_chord=_RECORD_LAUNCH,
+                     fused_horizon=_RECORD_LAUNCH)
 
 
 def phase_route(method: str, phases, T: int) -> str:
@@ -209,12 +243,6 @@ def phase_route(method: str, phases, T: int) -> str:
 def _check_supported(cfg: InferenceConfig):
     """Raise on the branches of the JAX pipeline this port does not carry
     yet, naming the ROADMAP item of each."""
-    if cfg.resume:
-        raise NotImplementedError("checkpoint resume is not ported yet: ROADMAP A8")
-    if cfg.grid.adaptive_fine_tau:
-        raise NotImplementedError(
-            "adaptive tau routing (grid.adaptive_fine_tau) is not ported yet: "
-            "ROADMAP A9")
     if cfg.device.n_devices not in (None, 1):
         raise NotImplementedError("more than one device is not ported yet: "
                                   "ROADMAP A15")
@@ -224,36 +252,34 @@ def _check_supported(cfg: InferenceConfig):
 
 
 def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
-             logger=None, ckpt: Optional[CheckpointManager] = None):
+             logger=None, ckpt: Optional[CheckpointManager] = None, start=(0, 0)):
     """Evaluate likelihoods for all curves/experiments into P (in place).
 
     Mirrors the reference ``simulate`` control flow (bayeslib.py:83-205).
-    Returns the (n,) convergence flags over all curves.
+    ``start`` = (curve, chunk) resumes a checkpointed run: earlier curves
+    and chunks are already in P.  Returns the (n,) convergence flags over
+    the curves and chunks run.
     """
     num_curves = len(init_params)
     num_exp = len(e_data)
     dtype = resolve_dtype(cfg.device.dtype)
     conv_all = np.ones(len(X), dtype=bool)
+    start_curve, start_chunk = start
 
     plans = [plan_fused_horizon(cfg, sim_params_for_curve(cfg, ic, num_curves),
                                 e_data, ic) for ic in range(num_curves)]
     if cfg.grid.bucket_horizons:
         plans = bucket_horizons(plans, logger)
 
-    for ic_num in range(num_curves):
+    for ic_num in range(start_curve, num_curves):
         sim = sim_params_for_curve(cfg, ic_num, num_curves)
         if logger:
             logger.info("Curve #%d: thickness=%s, %d timesteps to %s ns",
                         ic_num, sim.length, sim.T, sim.time)
         plan = plans[ic_num]
         og = None
-        if plan is None:
-            og = (plan_offgrid(cfg, sim, e_data, ic_num)
-                  if cfg.grid.offgrid_fused else None)
-            if og is None:
-                raise NotImplementedError(
-                    "off-grid observation times (the interpolation fallback) "
-                    "are not ported yet: ROADMAP A12")
+        if plan is None and cfg.grid.offgrid_fused:
+            og = plan_offgrid(cfg, sim, e_data, ic_num)
 
         def _ckpt_chunk(ci, _ll, _ic=ic_num):
             if ckpt is not None:
@@ -262,30 +288,72 @@ def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
                     chunk=runner.chunk, curve_index=_ic, chunk_index=ci + 1)
                 ckpt.save_progress(state, P)
 
-        if ckpt is not None:
+        first_chunk = start_chunk if ic_num == start_curve else 0
+        # On a mid-curve resume the snapshot on disk is this curve's already.
+        if ckpt is not None and first_chunk == 0:
             ckpt.save_curve_start(P)
         common = dict(normalize=cfg.sim_flags.self_normalize, dtype=dtype,
                       chunk_done=_ckpt_chunk, out=P,
                       progress=(lambda ci, nc: logger.info(
                           "Curve #%d: chunk %d of %d", ic_num, ci, nc))
                       if logger else None)
-        if og is None:
+        if plan is not None:
             sim_c, obs_vals, obs_mask = plan
             if logger:
                 logger.info("Observation times on simulation grid: fused "
                             "likelihood (horizon %d steps%s); %s", sim_c.T,
                             ", masked" if obs_mask is not None else "",
                             phase_route(sim_c.method, sim_c.fast_phases, sim_c.T))
-            _, conv = runner.run_curve(X, sim_c, init_params[ic_num], obs_vals,
-                                       obs_mask=obs_mask, **common)
-        else:
+            routing = _adaptive_split(cfg, sim_c, X)
+            args = (X, sim_c, init_params[ic_num], obs_vals)
+            if routing is None:
+                _, conv = runner.run_curve(*args, obs_mask=obs_mask,
+                                           start_chunk=first_chunk, **common)
+            else:
+                # Adaptive tau routing: the short-tau_n bucket runs a finer
+                # ladder; the two passes share one checkpoint chunk
+                # sequence (bulk chunks first).
+                bulk_idx, fine_idx, sim_f = routing
+                if logger:
+                    logger.info("Adaptive ladder: %d of %d samples in the "
+                                "tau_n < %g ns fine bucket; %s", len(fine_idx),
+                                len(X), cfg.grid.adaptive_fine_tau,
+                                phase_route(sim_f.method, sim_f.fast_phases, sim_f.T))
+                nb_chunks = -(-len(bulk_idx) // runner.chunk)
+                conv = np.ones(len(X), dtype=bool)
+                if len(bulk_idx) and first_chunk < nb_chunks:
+                    conv &= runner.run_curve(
+                        *args, obs_mask=obs_mask, start_chunk=first_chunk,
+                        sample_idx=bulk_idx, **common)[1]
+                conv &= runner.run_curve(
+                    X, sim_f, init_params[ic_num], obs_vals, obs_mask=obs_mask,
+                    start_chunk=max(0, first_chunk - nb_chunks),
+                    sample_idx=fine_idx, chunk_index_offset=nb_chunks, **common)[1]
+        elif og is not None:
             sim_c, schedule, tables = og
             if logger:
                 logger.info("Observation times off-grid: fused slot-table "
                             "likelihood (horizon %d steps); %s", sim_c.T,
                             phase_route(sim_c.method, schedule, sim_c.T))
             _, conv = runner.run_curve_offgrid(X, sim_c, init_params[ic_num],
-                                               tables, schedule, **common)
+                                               tables, schedule,
+                                               start_chunk=first_chunk, **common)
+        else:
+            # The interpolation fallback (the reference's main loop): the
+            # full horizon of the config, PL every pl_stride steps.
+            if logger:
+                logger.info("Observation times off-grid: interpolating "
+                            "likelihood (horizon %d steps, PL every %d); %s",
+                            sim.T, sim.pl_stride, RECORD_ROUTES[sim.method])
+            _, conv = runner.run_curve_interp(
+                X, sim, init_params[ic_num],
+                [np.asarray(e_data[e][0][ic_num]) for e in range(num_exp)],
+                [np.asarray(e_data[e][1][ic_num]) for e in range(num_exp)],
+                log_pl=cfg.sim_flags.log_pl,
+                obs_weights=([_sigma_weights(e_data[e][2][ic_num])
+                              for e in range(num_exp)]
+                             if cfg.sim_flags.use_uncertainty else None),
+                start_chunk=first_chunk, **common)
         conv_all &= conv
     P[:, ~conv_all] = np.nan
     return conv_all
@@ -322,9 +390,23 @@ def bayes(cfg: InferenceConfig, logger: Optional[logging.Logger] = None,
     validate.validate_solver(cfg.grid.method, cfg.grid.predictor)
 
     min_x, max_x = cfg.params.bounds_converted()
-    _, P, X = sampling.make_grid(
-        num_exp, min_x, max_x, cfg.params.do_log, cfg.sim_flags.as_dict(),
-        rng=np.random.RandomState(cfg.sim_flags.seed))
+    ckpt = None
+    start = (0, 0)
+    resumed = False
+    if cfg.checkpoint and cfg.paths.out_dirs:
+        ckpt = CheckpointManager(cfg.paths.out_dirs[0])
+        if cfg.resume:
+            loaded = ckpt.load()
+            if loaded is not None:
+                state, P, X, _ = loaded
+                start = (state.curve_index, state.chunk_index)
+                resumed = True
+                if logger:
+                    logger.info("Resuming at curve %d chunk %d", *start)
+    if not resumed:
+        _, P, X = sampling.make_grid(
+            num_exp, min_x, max_x, cfg.params.do_log, cfg.sim_flags.as_dict(),
+            rng=np.random.RandomState(cfg.sim_flags.seed))
     if logger:
         logger.info("Initialized %d random samples", len(X))
 
@@ -332,12 +414,11 @@ def bayes(cfg: InferenceConfig, logger: Optional[logging.Logger] = None,
         logger.info("Solver method %s: %s", cfg.grid.method,
                     SOLVER_ROUTES[cfg.grid.method])
     runner = Runner(chunk=cfg.device.chunk_per_device, device=device)
-    ckpt = None
-    if cfg.checkpoint and cfg.paths.out_dirs:
-        ckpt = CheckpointManager(cfg.paths.out_dirs[0])
+    if ckpt is not None and not resumed:
         ckpt.init(X, num_exp, len(init_params), runner.chunk)
 
-    simulate(cfg, e_data, init_params, X, P, runner, logger=logger, ckpt=ckpt)
+    simulate(cfg, e_data, init_params, X, P, runner, logger=logger, ckpt=ckpt,
+             start=start)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 

@@ -1,11 +1,13 @@
 """Command-line inference entry point.
 
 Usage:
-    python -m bayesian_inference_trpl_tpu_torch.run config.toml \
+    python -m bayesian_inference_trpl_tpu_torch.run config.toml [--resume] \
         [--num-points N] [--log-dir Logs] [--device cuda|cpu]
 
 The configuration format is the JAX package's (examples/*.toml).  The run
-goes on the GPU unless ``--device cpu`` is given.
+goes on the GPU unless ``--device cpu`` is given.  With ``checkpoint =
+true`` it checkpoints after every chunk into the first output directory;
+``--resume`` (or ``resume = true``) continues from that checkpoint.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ def start_logging(log_dir: str = "Logs"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("config", help="TOML inference config")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the checkpoint in the output dir")
     ap.add_argument("--num-points", type=int, default=None)
     ap.add_argument("--log-dir", default="Logs")
     ap.add_argument("--device", default="cuda",
@@ -50,6 +54,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
+    if args.resume:
+        cfg.resume = True
     if args.num_points is not None:
         cfg.sim_flags.num_points = args.num_points
     if args.dump_config:

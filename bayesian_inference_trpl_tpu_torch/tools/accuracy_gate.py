@@ -157,11 +157,12 @@ def run_gate(lp64, batch=64, T=80000, fine_steps=256, base_stride=16,
     1e-30) before differencing, as the reference clamps both sides before
     its SSE.  ``method`` None takes ``fused_horizon_chord`` (the CUDA
     kernel) on the card and ``coupled_newton`` (the step loop) on the CPU.
+
+    ``adaptive_fine_tau``: the samples with tau_n below it also run the
+    finer ladder of the pipeline's adaptive routing (grid.adaptive_fine_tau:
+    fine phase min(512, T // 2), stride cap min(32, max_stride)), and their
+    rms rows and convergence come from it.
     """
-    if adaptive_fine_tau:
-        raise NotImplementedError(
-            "adaptive tau routing (--adaptive-fine-tau) is not ported yet: "
-            "ROADMAP A9")
     from .. import physics
     from ..models.driver import SimParams, pl_log_scale
     from ..models.solver import FusedObs, SolverConfig
@@ -194,7 +195,10 @@ def run_gate(lp64, batch=64, T=80000, fine_steps=256, base_stride=16,
     win = (lp64 >= lp64.max(axis=1, keepdims=True) - float(meas_decades))
     win_m = (lp64 >= lp64.max(axis=1, keepdims=True) - MEAS_DEPTH_DECADES)
 
-    def run_fast(mask):
+    n_win = win.sum(axis=1)
+    n_win_m = win_m.sum(axis=1)
+
+    def run_fast(mask, sched):
         """Each sample's exact curve is one observation row (num_exp =
         batch); returns sse (batch, batch) and the convergence flags."""
         obs = FusedObs(values=values, log_scale=log_scale, min_val=1e-30,
@@ -203,26 +207,44 @@ def run_gate(lp64, batch=64, T=80000, fine_steps=256, base_stride=16,
         n0 = mat32[:, 0:1] + dn32
         p0 = mat32[:, 1:2] + dn32
         r = solve_multiphase(mat32, n0, p0, torch.zeros_like(n0), cfg32, obs,
-                             schedule)
+                             sched)
         return r.sse.cpu().numpy(), r.converged.cpu().numpy()
 
-    # fast_seconds times the first (full-horizon) solve only; the JAX tool
-    # times all three (ROADMAP C2).
-    t0 = time.perf_counter()
-    sse, conv = run_fast(None)
-    t_fast = time.perf_counter() - t0
-    sse_w, _ = run_fast(win)
-    sse_m, _ = run_fast(win_m)
-    n_win = win.sum(axis=1)
-    n_win_m = win_m.sum(axis=1)
-    rms_full = np.sqrt(np.diagonal(sse) / (T + 1))
-    rms_w = np.sqrt(np.diagonal(sse_w) / n_win)
-    rms_m = np.sqrt(np.diagonal(sse_m) / n_win_m)
+    def rms_set(sched):
+        """(full-horizon, deep-window, measurable-window) rms per sample,
+        the convergence flags and the seconds of the first (full-horizon)
+        solve, on the ladder ``sched``."""
+        t0 = time.perf_counter()
+        sse, conv = run_fast(None, sched)
+        secs = time.perf_counter() - t0
+        sse_w, _ = run_fast(win, sched)
+        sse_m, _ = run_fast(win_m, sched)
+        return (np.sqrt(np.diagonal(sse) / (T + 1)),
+                np.sqrt(np.diagonal(sse_w) / n_win),
+                np.sqrt(np.diagonal(sse_m) / n_win_m), conv, secs)
+
+    # fast_seconds times the shipped ladder's first (full-horizon) solve
+    # only; the JAX tool times all three (ROADMAP C2).
+    rms_full, rms_w, rms_m, conv, t_fast = rms_set(schedule)
+    n_fine_bucket = 0
+    if adaptive_fine_tau:
+        sched_fine = geometric_schedule(
+            T, min(512, T // 2), base_stride=base_stride,
+            coarse_steps_per_phase=steps_per_phase,
+            max_stride=min(32, max_stride))
+        sel = mat[:, 9] < float(adaptive_fine_tau)      # tau_n [ns]
+        n_fine_bucket = int(sel.sum())
+        if n_fine_bucket:
+            f_full, f_w, f_m, f_conv, _ = rms_set(sched_fine)
+            rms_full = np.where(sel, f_full, rms_full)
+            rms_w = np.where(sel, f_w, rms_w)
+            rms_m = np.where(sel, f_m, rms_m)
+            conv = np.where(sel, f_conv, conv)
     report = dict(
         batch=batch, T=T, profile=profile, seed=seed,
         schedule=[list(p) for p in schedule],
         adaptive_fine_tau=adaptive_fine_tau,
-        adaptive_fine_bucket=0,
+        adaptive_fine_bucket=n_fine_bucket,
         rms_log10_pl_max_meas=float(np.nanmax(rms_m)),
         rms_log10_pl_max=float(np.nanmax(rms_w)),
         rms_log10_pl_mean=float(np.nanmean(rms_w)),
@@ -319,17 +341,15 @@ def main(argv=None):
     ap.add_argument("--max-stride", type=int, default=64)
     ap.add_argument("--steps-per-phase", type=int, default=512)
     ap.add_argument("--adaptive-fine-tau", type=float, default=None,
-                    help="adaptive tau routing; not ported yet (ROADMAP A9)")
+                    help="route samples with tau_n below this [ns] through "
+                         "the finer 512/16/32 ladder (the pipeline's "
+                         "grid.adaptive_fine_tau)")
     ap.add_argument("--meas-decades", type=float, default=10.0,
                     help="measurement window for the gated rms: points "
                          "within this many decades of each curve's peak")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     args = ap.parse_args(argv)
-    if args.adaptive_fine_tau:
-        raise NotImplementedError(
-            "adaptive tau routing (--adaptive-fine-tau) is not ported yet: "
-            "ROADMAP A9")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("accuracy_gate: CUDA requested but no CUDA device is "
                          "available (pass --device cpu to run on the CPU)")
@@ -386,7 +406,8 @@ def main(argv=None):
                       steps_per_phase=args.steps_per_phase,
                       t_exact=t_exact, profile=args.profile,
                       method=args.method, predictor=args.predictor,
-                      meas_decades=args.meas_decades, device=args.device)
+                      meas_decades=args.meas_decades,
+                      adaptive_fine_tau=args.adaptive_fine_tau, device=args.device)
     ok = (report["rms_log10_pl_max_meas"] <= args.tol
           and report["rms_log10_pl_max"] <= args.tol10
           and report["non_converged"] == 0)

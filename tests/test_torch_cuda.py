@@ -353,3 +353,77 @@ def test_launch_refuses_too_much_shared_memory(cuda_device):
         fit = hk.shared_memory(128, 8, stride)
         assert fit["samples_per_block"] == 4
         assert fit["block_bytes"] <= fit["optin_bytes"]
+
+
+def _record_calls(device, dtype, B, T, pl_stride):
+    """The record launch of solve(record_pl=True) for a fused method (full
+    Newton at stride 1 over the whole horizon, no observations), with its
+    plain version's result (group = 1)."""
+    mat, n0, p0, e0, _, cfg = _problem(device, dtype, B=B, T=T)
+    calls = []
+
+    def rec(*args):
+        calls.append((args, hk.horizon_chord_plain(*args, group=1)))
+        return calls[-1][1]
+    res = solver.solve(mat, n0, p0, e0, cfg._replace(pl_stride=pl_stride), kernel=rec)
+    (args, ref), = calls
+    prm = args[-1]
+    assert (prm.stride, prm.offgrid_k, prm.chord, prm.pl_stride) == (1, 0, False, pl_stride)
+    assert args[4].shape == (0, T) and torch.equal(res.pl, ref.pl)
+    return args, ref
+
+
+@pytest.mark.parametrize("pl_stride", [1, 4])
+def test_record_kernel_matches_plain_f64(cuda_device, pl_stride):
+    """The PL trace of the full-Newton stride-1 body on a 256-step phase,
+    float64: trace within 1e-12 relative, conv, its and maxit equal,
+    final N/P/E bitwise; one record launch."""
+    args, ref = _record_calls(cuda_device, torch.float64, 8, 256, pl_stride)
+    before = dict(hk.launches)
+    out = hk.horizon_chord(*args)
+    torch.cuda.synchronize()
+    assert out.pl.shape == (8, 256 // pl_stride + 1)
+    torch.testing.assert_close(out.pl, ref.pl, rtol=1e-12, atol=0.0)
+    for name in ("conv", "its", "maxit", "fulls", "execs"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    for name in ("n", "p", "e"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert bool(ref.conv.all())
+    assert hk.launches["stride_1_record"] - before["stride_1_record"] == 1
+    assert hk.launches["stride_1_full"] == before["stride_1_full"]
+
+
+def test_record_kernel_matches_plain_f32(cuda_device):
+    """float32, 256 samples: the kernel and the plain version sum in other
+    orders, so a Newton decision may flip at a threshold.  Required: conv
+    equal on >= 99% of the samples and the trace within 1e-3 relative at
+    every point on >= 99% of the samples converged in both."""
+    args, ref = _record_calls(cuda_device, torch.float32, 256, 256, 4)
+    out = hk.horizon_chord(*args)
+    torch.cuda.synchronize()
+    assert float((out.conv == ref.conv).float().mean()) >= 0.99
+    both = out.conv & ref.conv
+    rel = ((out.pl - ref.pl).abs() / ref.pl.abs().clamp_min(1e-30)).amax(1)[both]
+    assert rel.numel() and float((rel <= 1e-3).float().mean()) >= 0.99
+
+
+def test_record_kernel_tail_1001(cuda_device):
+    """A batch of 1001 (not a multiple of the samples per block), float64:
+    trace within 1e-12, state bitwise."""
+    args, ref = _record_calls(cuda_device, torch.float64, 1001, 64, 2)
+    out = hk.horizon_chord(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.pl, ref.pl, rtol=1e-12, atol=0.0)
+    for name in ("conv", "its", "n", "p", "e"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+
+
+def test_record_trace_that_does_not_fit_raises(cuda_device):
+    """A trace larger than the card (1001 samples x 20,000,001 float64
+    points, 160 GB) raises torch.OutOfMemoryError before any launch; the
+    batch is not cut to fit."""
+    mat, n0, p0, e0, _, cfg = _problem(cuda_device, torch.float64, B=1001, T=8)
+    before = dict(hk.launches)
+    with pytest.raises(torch.OutOfMemoryError):
+        solver.solve(mat, n0, p0, e0, cfg._replace(num_steps=20_000_000))
+    assert hk.launches == before

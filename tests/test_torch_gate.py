@@ -155,11 +155,20 @@ def test_main_reads_bundled_synthetic_cache(monkeypatch, capsys):
 
 
 def test_adaptive_fine_tau_raises_naming_a9(jax_lp64):
-    with pytest.raises(NotImplementedError, match="A9"):
-        tgate.main(["--profile", "synthetic", "--batch", "8",
-                    "--adaptive-fine-tau", "50", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tgate.run_gate(jax_lp64, adaptive_fine_tau=50.0, device="cpu", **GATE)
+    """Adaptive tau routing (A9, ported; the name is the test's from before
+    the port): with the threshold between the batch's tau_n values, the
+    fine bucket's rms rows come from the finer ladder, as in JAX
+    ``run_gate``; offsets as above, every rms within 1e-4 relative."""
+    tau = float(np.median(tgate.sample_production_box(GATE["batch"], 0)[:, 9]))
+    lp = jax_lp64 + offsets(GATE["batch"], GATE["T"])
+    rt = tgate.run_gate(lp, device="cpu", verbose=False, adaptive_fine_tau=tau, **GATE)
+    rj = jgate.run_gate(lp, verbose=False, adaptive_fine_tau=tau, **GATE)
+    assert rt["adaptive_fine_bucket"] == rj["adaptive_fine_bucket"] == GATE["batch"] // 2
+    assert rt["adaptive_fine_tau"] == rj["adaptive_fine_tau"] == tau
+    for k in EQUAL_KEYS:
+        assert rt[k] == rj[k], k
+    for k in RMS_KEYS:
+        np.testing.assert_allclose(rt[k], rj[k], rtol=1e-4, err_msg=k)
 
 
 def test_report_is_json(jax_lp64, capsys):

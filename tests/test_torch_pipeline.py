@@ -81,19 +81,14 @@ def test_bayes_matches_jax(tmp_path, monkeypatch):
 
 def test_unported_branches_raise(tmp_path):
     """Branches the port does not carry yet raise NotImplementedError
-    naming their ROADMAP item instead of falling back.  Off-grid times
-    (num_steps=T + 4 moves the grid) now take the fused slot-table route
-    (tests/test_torch_offgrid.py); only without it (offgrid_fused=False)
-    do they need the interpolation fallback, A12.  The methods
-    fused_horizon (B4) and coupled_newton_pallas (B5) are ported and run
-    end to end in tests/test_torch_full_newton_bayes.py."""
+    naming their ROADMAP item instead of falling back.  Resume (A8),
+    adaptive tau routing (A9) and the interpolation fallback (A12) are
+    ported: tests/test_torch_resume.py, test_torch_adaptive.py and
+    test_torch_interp_bayes.py."""
     obs, exc = _write_synthetic(tmp_path, num_curves=1)
     cases = [
-        (dict(resume=True), "A8"),
-        (dict(grid=dict(adaptive_fine_tau=50.0)), "A9"),
         (dict(device=dict(n_devices=2)), "A15"),
         (dict(grid=dict(method="gauss_seidel")), "A13"),
-        (dict(grid=dict(num_steps=T + 4, offgrid_fused=False)), "A12"),
     ]
     for change, item in cases:
         cfg = _config(tcfg, tmp_path, obs, exc, "X")
