@@ -20,7 +20,11 @@
 // Given an output for it, FULL at stride 1 also records the PL trace: the
 // JAX package's solve(record_pl=True), which runs both fused methods as the
 // coupled_newton XLA scan (models/solver.py:304-317, :367-432), the solve
-// of the interpolation fallback.
+// of the interpolation fallback.  The same launch may also record the state
+// N/P/E every state_every steps and, per recorded PL point, the largest
+// Newton iteration count of its pl_stride steps (the scan's
+// record_state_stride and record_iters outputs, :411-416, of the forward
+// model's standalone mode, models/driver.pvsim).
 //
 // Design: one warp per sample, lane l holding cells l + 32 j (see
 // trpl_newton.cuh), up to 4 samples per block; the whole phase runs in one
@@ -63,9 +67,11 @@ template <typename T> struct Args {
   T *n_out, *p_out, *e_out;
   int *fulls, *execs;
   T* pl_out;   // the PL trace (batch, T_steps / pl_stride + 1), or null
+  T* st_out;   // the state trace (T_steps / state_every, 3, batch, L), or null
+  int* it_out; // the iteration trace (batch, T_steps / pl_stride), or null
   int batch, L, T_steps, stride, offgrid_k, num_exp;
   int has_mask, normalize, ext_pl0, pred_order, max_iters, chord_budget, approx_inv;
-  int pl_stride;
+  int pl_stride, state_every;
   double tol, step_tol, log_scale, min_val, settle_guard, skip_accept_factor,
       skip_tighten, stall, step_tol_guard;
 };
@@ -192,6 +198,7 @@ __global__ void __launch_bounds__(128, JC > 0 ? 2 : 1)
 
   bool conv = true, cval = false;
   int its = 0, maxit = 0, fulls = 0, execs = 0;
+  int rec_it = 0;   // the iteration trace's running max over a PL stride
   Fin<T, Lane<JC>::HCAP> fin;
 
   for (int t = 0; t < TS; t++) {
@@ -339,6 +346,29 @@ __global__ void __launch_bounds__(128, JC > 0 ? 2 : 1)
     const T lp = logpl(pl_t);
     if (kRecord && pl_row != nullptr && lane == 0 && (t + 1) % a.pl_stride == 0)
       pl_row[(t + 1) / a.pl_stride] = pl_t;
+    if (kRecord && a.it_out != nullptr) {
+      // The largest iteration count of the pl_stride steps of each
+      // recorded point, stored by lane 0.
+      rec_it = step_its > rec_it ? step_its : rec_it;
+      if ((t + 1) % a.pl_stride == 0) {
+        if (lane == 0)
+          a.it_out[(size_t)b * (TS / a.pl_stride) + (t + 1) / a.pl_stride - 1] = rec_it;
+        rec_it = 0;
+      }
+    }
+    if (kRecord && a.st_out != nullptr && (t + 1) % a.state_every == 0) {
+      // Frame (t + 1) / state_every - 1 of the state trace, from the lanes'
+      // registers: cell 32 j + lane, so each store of the warp coalesces.
+      const size_t plane = (size_t)a.batch * L;
+      T* const fr = a.st_out + (size_t)((t + 1) / a.state_every - 1) * 3 * plane +
+                    (size_t)b * L + lane;
+#pragma unroll
+      for (int j = 0; j < J; j++) {
+        fr[32 * j] = N[j];
+        fr[plane + 32 * j] = P[j];
+        fr[2 * plane + 32 * j] = E[j];
+      }
+    }
     if (MODE == STRIDE1) {
       for (int e = lane; e < NE; e += 32) {
         const T err = lp - a.obs[(size_t)e * TS + t];
@@ -445,6 +475,12 @@ int launch(const Args<T>& a, cudaStream_t stream) {
   if (a.pl_out != nullptr && (MODE != STRIDE1 || NEWTON != FULL || a.pl_stride < 1 ||
                               a.T_steps % a.pl_stride != 0))
     return (int)cudaErrorInvalidValue;
+  // The state and iteration traces ride on the PL trace's launch: every
+  // state_every (a multiple of pl_stride) steps, and every pl_stride steps.
+  if ((a.st_out != nullptr || a.it_out != nullptr) && a.pl_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (a.st_out != nullptr && (a.state_every < 1 || a.state_every % a.pl_stride != 0))
+    return (int)cudaErrorInvalidValue;
   if (a.batch == 0 || a.T_steps == 0) return 0;
   const SampleLayout<T> sl(a.L, a.num_exp, slots_of<MODE>(a.stride, a.offgrid_k));
   const int spb = samples_per_block(sl.bytes);
@@ -495,9 +531,10 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
           const void* obs, const void* msk, const void* vmask, const void* pl0,
           const void* wtab, const void* bdf, void* sse, void* esum, void* conv,
           void* its, void* maxit, void* n_out, void* p_out, void* e_out,
-          void* fulls, void* execs, void* pl_out, int batch, int L, int T_steps, int stride,
-          int offgrid_k, int num_exp, int has_mask, int normalize, int ext_pl0, int pred_order,
-          int max_iters, int chord_budget, int approx_inv, int pl_stride, double tol,
+          void* fulls, void* execs, void* pl_out, void* st_out, void* it_out, int batch,
+          int L, int T_steps, int stride, int offgrid_k, int num_exp, int has_mask,
+          int normalize, int ext_pl0, int pred_order, int max_iters, int chord_budget,
+          int approx_inv, int pl_stride, int state_every, double tol,
           double step_tol, double log_scale, double min_val, double settle_guard,
           double skip_accept_factor, double skip_tighten, double stall,
           double step_tol_guard, void* stream) {
@@ -509,11 +546,12 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
   a.conv = (int*)conv; a.its = (int*)its; a.maxit = (int*)maxit;
   a.n_out = (T*)n_out; a.p_out = (T*)p_out; a.e_out = (T*)e_out;
   a.fulls = (int*)fulls; a.execs = (int*)execs; a.pl_out = (T*)pl_out;
+  a.st_out = (T*)st_out; a.it_out = (int*)it_out;
   a.batch = batch; a.L = L; a.T_steps = T_steps; a.stride = stride;
   a.offgrid_k = offgrid_k; a.num_exp = num_exp;
   a.has_mask = has_mask; a.normalize = normalize; a.ext_pl0 = ext_pl0;
   a.pred_order = pred_order; a.max_iters = max_iters; a.chord_budget = chord_budget;
-  a.approx_inv = approx_inv; a.pl_stride = pl_stride;
+  a.approx_inv = approx_inv; a.pl_stride = pl_stride; a.state_every = state_every;
   a.tol = tol; a.step_tol = step_tol; a.log_scale = log_scale; a.min_val = min_val;
   a.settle_guard = settle_guard; a.skip_accept_factor = skip_accept_factor;
   a.skip_tighten = skip_tighten; a.stall = stall; a.step_tol_guard = step_tol_guard;
@@ -527,18 +565,20 @@ int entry(const void* mat, const void* n0, const void* p0, const void* e0,
       const void *obs, const void *msk, const void *vmask, const void *pl0,     \
       const void *wtab, const void *bdf, void *sse, void *esum, void *conv,     \
       void *its, void *maxit, void *n_out, void *p_out, void *e_out,            \
-      void *fulls, void *execs, void *pl_out, int batch, int L, int T_steps,    \
-      int stride, int offgrid_k, int num_exp, int has_mask, int normalize,      \
-      int ext_pl0, int pred_order, int max_iters, int chord_budget,             \
-      int approx_inv, int pl_stride, double tol,                                \
+      void *fulls, void *execs, void *pl_out, void *st_out, void *it_out,       \
+      int batch, int L, int T_steps, int stride, int offgrid_k, int num_exp,    \
+      int has_mask, int normalize, int ext_pl0, int pred_order, int max_iters,  \
+      int chord_budget, int approx_inv, int pl_stride, int state_every,         \
+      double tol,                                                               \
       double step_tol, double log_scale, double min_val, double settle_guard,   \
       double skip_accept_factor, double skip_tighten, double stall,             \
       double step_tol_guard, void *stream
 #define TRPL_ENTRY_CALL                                                          \
   mat, n0, p0, e0, obs, msk, vmask, pl0, wtab, bdf, sse, esum, conv, its, maxit, \
-      n_out, p_out, e_out, fulls, execs, pl_out, batch, L, T_steps, stride,      \
-      offgrid_k, num_exp, has_mask, normalize, ext_pl0, pred_order, max_iters,   \
-      chord_budget, approx_inv, pl_stride, tol, step_tol, log_scale, min_val,    \
+      n_out, p_out, e_out, fulls, execs, pl_out, st_out, it_out, batch, L,       \
+      T_steps, stride, offgrid_k, num_exp, has_mask, normalize, ext_pl0,         \
+      pred_order, max_iters, chord_budget, approx_inv, pl_stride, state_every,   \
+      tol, step_tol, log_scale, min_val,                                         \
       settle_guard, skip_accept_factor, skip_tighten, stall, step_tol_guard, stream
 
 // Plain C interface, loaded with ctypes by ops/horizon_kernel.py: one

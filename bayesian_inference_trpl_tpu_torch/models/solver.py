@@ -3,12 +3,14 @@
 ``solve`` advances a batch of simulations over a fixed-dt horizon.  With
 ``method="fused_horizon_chord"`` (chord Newton) or ``"fused_horizon"``
 (full Newton) and fused observations the whole horizon is one launch of
-the horizon kernel (ops/horizon_kernel.py); asked only for the PL trace,
-either fused method is one launch of the kernel's full Newton recording it
-(the JAX package runs them as coupled_newton there).  Otherwise a Python
-step loop runs coupled Newton step by step: models/newton.coupled_newton_step,
-or for ``method="coupled_newton_pallas"`` one launch of the per-step Newton
-kernel per step (ops/newton_kernel.py).
+the horizon kernel (ops/horizon_kernel.py); asked only for the PL trace
+(and perhaps the state and iteration traces), either fused method is one
+launch of the kernel's full Newton recording it (the JAX package runs them
+as coupled_newton there).  Otherwise, and for every segmented call
+(``start_step``, ``init_hist``, ``acc0``, ``return_hist``, ``pl0``), a
+Python step loop runs coupled Newton step by step:
+models/newton.coupled_newton_step, or for ``method="coupled_newton_pallas"``
+one launch of the per-step Newton kernel per step (ops/newton_kernel.py).
 
 The likelihood is fused into the time loop: the loop carries running sums
 of the log-residual and its square, and the sampled ``mag_offset`` enters
@@ -69,6 +71,13 @@ class SolveResult(NamedTuple):
     max_newton_iters: torch.Tensor    # scalar: worst per-step iterations
     sse: Optional[torch.Tensor]       # (num_exp, batch) running sum of w e^2
     err_sum: Optional[torch.Tensor]   # (num_exp, batch) running sum of w e
+    states: Optional[tuple] = None    # (N, P, E), each (T // pl_stride, batch, L):
+    #                                   the state at recorded point j + 1, NaN
+    #                                   unless (j + 1) pl_stride is a multiple
+    #                                   of record_state_stride
+    iters: Optional[torch.Tensor] = None  # (T // pl_stride,) int32: the largest
+    #                                   iteration count of each point's steps
+    hist: Optional[tuple] = None      # final (nh, ph, eh) rolling histories
     sample_iters: Optional[torch.Tensor] = None   # (batch,) Newton updates
     full_solves: Optional[torch.Tensor] = None    # (batch,) Jacobian refreshes
     #                                               (chord kernel telemetry)
@@ -167,10 +176,8 @@ def init_history(n_init, p_init, e_init):
 
 
 def _check_supported(cfg: SolverConfig):
-    if cfg.record_state_stride is not None or cfg.record_iters:
-        raise NotImplementedError(
-            "record_state_stride and record_iters are not ported yet: "
-            "ROADMAP A14")
+    if cfg.record_state_stride is not None and cfg.record_state_stride < 1:
+        raise ValueError(f"record_state_stride={cfg.record_state_stride} < 1")
     if cfg.num_steps % cfg.pl_stride:
         raise ValueError(f"num_steps={cfg.num_steps} not divisible by "
                          f"pl_stride={cfg.pl_stride}")
@@ -181,7 +188,9 @@ def _check_supported(cfg: SolverConfig):
 
 def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
           obs: Optional[FusedObs] = None, record_pl: bool = True,
-          kernel=None) -> SolveResult:
+          kernel=None, start_step: int = 0, init_hist: Optional[tuple] = None,
+          acc0: Optional[tuple] = None, return_hist: bool = False,
+          pl0: Optional[torch.Tensor] = None) -> SolveResult:
     """Evolve a batch of TRPL simulations for cfg.num_steps BDF steps.
 
     Args:
@@ -193,10 +202,22 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
         steps; the Newton failures of every step count.
       kernel: the horizon kernel's entry for fused solves (default
         ops.horizon_kernel.horizon_chord); tests pass its plain version.
+      start_step/init_hist/acc0/return_hist: segmentation, as the JAX
+        package's solve: ``return_hist=True`` returns the rolling histories
+        in ``hist``; the next segment passes them as ``init_hist`` with
+        ``start_step`` = the steps already taken (a multiple of
+        cfg.pl_stride), ``acc0`` = (sse, err_sum) so far and the obs columns
+        from the segment boundary.  The BDF order ramp, the slot layout and
+        the sums continue where the last segment stopped.
+      pl0: the normalization anchor (the run's t = 0 PL, (batch,)); a
+        continued segment with ``obs.normalize`` must pass it.
     """
     _check_supported(cfg)
-    if cfg.method in ("fused_horizon", "fused_horizon_chord"):
-        if obs is not None and not record_pl and cfg.pl_stride == 1:
+    segmented = (start_step != 0 or init_hist is not None or acc0 is not None
+                 or return_hist or pl0 is not None)
+    if cfg.method in ("fused_horizon", "fused_horizon_chord") and not segmented:
+        if (obs is not None and not record_pl and cfg.pl_stride == 1
+                and cfg.record_state_stride is None and not cfg.record_iters):
             from ..ops.horizon_kernel import solve_horizon_fused
             return solve_horizon_fused(mat_nd, n_init, p_init, cfg, obs,
                                        e_init=e_init, kernel=kernel)
@@ -205,34 +226,60 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
             return solve_horizon_record(mat_nd, n_init, p_init, cfg,
                                         e_init=e_init, kernel=kernel)
 
+    stride = cfg.pl_stride
+    if start_step % stride:
+        raise ValueError(f"start_step={start_step} not divisible by pl_stride={stride}")
     mp = MatParams.from_array(mat_nd)
     batch, L = n_init.shape
     dev = n_init.device
     tol = _scalar(cfg.tol, n_init)
     step_tol = _scalar(0.0 if cfg.step_tol is None else cfg.step_tol, n_init)
-    nh, ph, eh = init_history(n_init, p_init, e_init)
-    pl0 = pl_observable(n_init, p_init, mp)
-    if obs is not None:
+    if init_hist is not None:
+        # bdf_step writes the histories in place: the caller's stay as given.
+        nh, ph, eh = (h.clone() for h in init_hist)
+        k0 = start_step % HISTORY
+        n_cur, p_cur = nh[k0], ph[k0]
+        if obs is not None and obs.normalize and pl0 is None:
+            raise ValueError(
+                "continued segment with obs.normalize=True requires the run-t=0 "
+                "PL anchor: pass pl0= from the first segment "
+                "(pl_observable(n0, p0, mp))")
+    else:
+        nh, ph, eh = init_history(n_init, p_init, e_init)
+        n_cur, p_cur = n_init, p_init
+    pl0 = (pl_observable(n_cur, p_cur, mp) if pl0 is None
+           else torch.as_tensor(pl0, dtype=n_init.dtype, device=dev))
+    if acc0 is not None:
+        sse, esum = acc0
+    elif obs is not None:
         e0 = _log_pl(pl0, obs, pl0) - obs.values[:, 0:1]      # (num_exp, batch)
         if obs.mask is not None:
             m0 = obs.mask[:, 0:1]
             sse, esum = m0 * e0 ** 2, m0 * e0
         else:
             sse, esum = e0 ** 2, e0
+    n_outer = cfg.num_steps // stride
+    rss = cfg.record_state_stride
+    states = (torch.full((3, n_outer, batch, L), float("nan"), dtype=n_init.dtype,
+                         device=dev) if rss is not None else None)
+    iters_trace = (torch.zeros(n_outer, dtype=torch.int32, device=dev)
+                   if cfg.record_iters else None)
     conv = torch.ones(batch, dtype=torch.bool, device=dev)
     samp_it = torch.zeros(batch, dtype=torch.int32, device=dev)
     max_it = torch.zeros((), dtype=torch.int32, device=dev)
     pls = [pl0]
-    stride = cfg.pl_stride
-    for t in range(cfg.num_steps):
-        Nn, Pn, _, iters, ok_t = bdf_step(t, nh, ph, eh, mp, cfg, tol, step_tol)
+    for t in range(start_step, start_step + cfg.num_steps):
+        Nn, Pn, En, iters, ok_t = bdf_step(t, nh, ph, eh, mp, cfg, tol, step_tol)
         samp_it = samp_it + iters
-        max_it = torch.maximum(max_it, iters.max())
-        ok = ok_t if t % stride == 0 else ok & ok_t
+        step_max = iters.max()
+        max_it = torch.maximum(max_it, step_max)
+        first = t % stride == 0
+        ok = ok_t if first else ok & ok_t
+        outer_it = step_max if first else torch.maximum(outer_it, step_max)
         if (t + 1) % stride:
             continue
-        # Recorded point j + 1, after pl_stride steps (JAX solver.py:367-407).
-        j = t // stride
+        # Recorded point j + 1, after pl_stride steps (JAX solver.py:367-416).
+        j = (t - start_step) // stride
         pl = pl_observable(Nn, Pn, mp)
         if record_pl:
             pls.append(pl)
@@ -249,11 +296,18 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
                 sse = sse + e ** 2
                 esum = esum + e
         conv = conv & ok
-    k_final = cfg.num_steps % HISTORY
+        if states is not None and (j + 1) * stride % rss == 0:
+            states[0, j], states[1, j], states[2, j] = Nn, Pn, En
+        if iters_trace is not None:
+            iters_trace[j] = outer_it
+    k_final = (start_step + cfg.num_steps) % HISTORY
     return SolveResult(
         pl=torch.stack(pls, dim=1) if record_pl else None,
         n=nh[k_final], p=ph[k_final], e=eh[k_final], converged=conv,
         max_newton_iters=max_it,
         sse=sse if obs is not None else None,
         err_sum=esum if obs is not None else None,
+        states=None if states is None else tuple(states.unbind(0)),
+        iters=iters_trace,
+        hist=(nh, ph, eh) if return_hist else None,
         sample_iters=samp_it)

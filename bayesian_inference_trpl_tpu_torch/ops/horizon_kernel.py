@@ -20,7 +20,11 @@ Full Newton at stride 1 also records the PL trace every ``pl_stride``
 steps (``solve_horizon_record``): the JAX package's ``solve(record_pl=True)``,
 which runs both fused methods as its coupled_newton XLA scan
 (models/solver.py:304-317 there), over the whole horizon of the
-interpolation fallback.
+interpolation fallback; with it, on request, the state N/P/E at every
+recorded point whose step is a multiple of ``state_stride`` and the largest
+Newton iteration count of each recorded point's steps (that scan's
+``record_state_stride`` and ``record_iters``, the forward model's
+standalone mode, models/driver.pvsim).
 
 Per step, for every sample: rolling 6-slot N/P/E histories with the BDF1->5
 ramp, the extrapolated predictor with positivity fallback, Newton (chord:
@@ -55,6 +59,7 @@ Four pieces live here:
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 from typing import NamedTuple, Optional
 
@@ -90,7 +95,7 @@ _PREDICTOR = {v: k for k, v in PRED_ORDER.items()}
 # main path.
 launches = {"stride_1": 0, "stride_s": 0, "offgrid": 0,
             "stride_1_full": 0, "stride_s_full": 0, "offgrid_full": 0,
-            "stride_1_record": 0}
+            "stride_1_record": 0, "stride_1_record_states": 0}
 
 
 def _chord_knobs(cfg: SolverConfig):
@@ -122,6 +127,10 @@ class HorizonParams(NamedTuple):
     #                           knobs above are then unused)
     pl_stride: int = 0        # P > 0: record the PL trace every P steps (full
     #                           Newton at stride 1 only)
+    state_stride: int = 0     # R > 0: with the PL trace, also record N/P/E
+    #                           every lcm(P, R) steps
+    record_iters: bool = False  # with the PL trace, also record each point's
+    #                           largest per-step iteration count
 
 
 class HorizonOut(NamedTuple):
@@ -138,6 +147,10 @@ class HorizonOut(NamedTuple):
     #                           (full Newton: both equal its)
     pl: Optional[torch.Tensor] = None   # (batch, T // pl_stride + 1)
     #                           nondimensional PL, if recorded
+    states: Optional[torch.Tensor] = None  # (T // state_every(prm), 3, batch, L)
+    #                           N/P/E after every state_every-th step
+    iters: Optional[torch.Tensor] = None   # (batch, T // pl_stride) int32: the
+    #                           largest iteration count of each point's steps
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +306,9 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
         full Newton (``prm.chord`` False) takes its decisions per sample.
 
     With ``prm.pl_stride`` P > 0 the PL (the value the likelihood logs)
-    is recorded at t = 0 and after every P-th step.
+    is recorded at t = 0 and after every P-th step; with it, on request,
+    N/P/E after every ``state_every(prm)``-th step and the largest
+    iteration count of each P steps.
     """
     batch, L = n0.shape
     S = prm.stride
@@ -333,6 +348,9 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     if S > 1 or K:
         lpw = [torch.zeros_like(pl00)] * 3 + [logpl(pl00)]
     pls = [pl00] if prm.pl_stride else None
+    every = state_every(prm)
+    frames = [] if every else None
+    rec_its = [] if prm.record_iters else None
 
     for t in range(T):
         if prm.chord:
@@ -341,14 +359,20 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             new = (t + 1) % HISTORY
             nh[new], ph[new], eh[new] = Nn, Pn, En
         else:
-            Nn, Pn, _, iters, done = bdf_step(t, nh, ph, eh, mp, step_cfg, tol,
-                                              step_tol)
+            Nn, Pn, En, iters, done = bdf_step(t, nh, ph, eh, mp, step_cfg, tol,
+                                               step_tol)
         its = its + iters
         maxit = torch.maximum(maxit, iters)
 
         pl_t = mp.rate * ((Nn * Pn).sum(-1) - L * n0p0)
         if pls is not None and (t + 1) % prm.pl_stride == 0:
             pls.append(pl_t)
+        if rec_its is not None:
+            rec_it = iters if t % prm.pl_stride == 0 else torch.maximum(rec_it, iters)
+            if (t + 1) % prm.pl_stride == 0:
+                rec_its.append(rec_it)
+        if frames is not None and (t + 1) % every == 0:
+            frames.append(torch.stack((Nn, Pn, En)))
         lp = logpl(pl_t)
         w_any = None
         if K:
@@ -407,19 +431,38 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     k = T % HISTORY
     fulls, execs = ((chord._rows(chord.fulls), chord._rows(chord.execs))
                     if prm.chord else (its, its))
-    return HorizonOut(sse, esum, conv, its, maxit, nh[k], ph[k], eh[k],
-                      fulls, execs, None if pls is None else torch.stack(pls, 1))
+    st = it = None
+    if every:
+        st = torch.stack(frames) if frames else n0.new_empty((0, 3, batch, L))
+    if prm.record_iters:
+        it = torch.stack(rec_its, 1) if rec_its else its.new_empty((batch, 0))
+    return HorizonOut(sse, esum, conv, its, maxit, nh[k], ph[k], eh[k], fulls, execs,
+                      None if pls is None else torch.stack(pls, 1), st, it)
+
+
+def state_every(prm: HorizonParams) -> int:
+    """Steps between two frames of the state trace (0: none): the recorded
+    points (every pl_stride steps) whose step is a multiple of state_stride,
+    as the JAX scan's ``(j + 1) * pl_stride % record_state_stride == 0``."""
+    return math.lcm(prm.pl_stride, prm.state_stride) if prm.state_stride else 0
 
 
 def _check_record(prm: HorizonParams, T: int):
-    """Raise unless a PL trace, if asked for, is one the kernel records:
-    full Newton at stride 1, every pl_stride steps of T."""
+    """Raise unless the traces asked for are ones the kernel records: the
+    PL trace by full Newton at stride 1, every pl_stride steps of T, and
+    the state and iteration traces only beside it."""
     if prm.pl_stride and (prm.chord or prm.stride != 1 or prm.offgrid_k
                           or prm.pl_stride < 0 or T % prm.pl_stride):
         raise ValueError(f"horizon_chord: the PL trace is recorded by full Newton "
                          f"at stride 1 every pl_stride steps of T; got chord "
                          f"{prm.chord}, stride {prm.stride}, K {prm.offgrid_k}, "
                          f"pl_stride {prm.pl_stride}, T {T}")
+    if (prm.state_stride or prm.record_iters) and (prm.pl_stride <= 0
+                                                   or prm.state_stride < 0):
+        raise ValueError(f"horizon_chord: the state and iteration traces are recorded "
+                         f"with the PL trace; got pl_stride {prm.pl_stride}, "
+                         f"state_stride {prm.state_stride}, record_iters "
+                         f"{prm.record_iters}")
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +470,7 @@ def _check_record(prm: HorizonParams, T: int):
 # ---------------------------------------------------------------------------
 
 _VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = [_VP] * 21 + [_CI] * 14 + [_CD] * 9 + [_VP]
+_ARGTYPES = [_VP] * 23 + [_CI] * 15 + [_CD] * 9 + [_VP]
 
 
 def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
@@ -487,10 +530,15 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     ints = [torch.empty(batch, dtype=torch.int32, device=dev) for _ in range(5)]
     conv, its, maxit, fulls, execs = ints
     n, p, e = (torch.empty_like(n0) for _ in range(3))
-    # The trace is allocated once per launch; one that does not fit on the
+    # Each trace is allocated once per launch; one that does not fit on the
     # card raises (torch.OutOfMemoryError) and the batch is not cut here.
     pl = (torch.empty((batch, T // prm.pl_stride + 1), dtype=dtype, device=dev)
           if prm.pl_stride else None)
+    every = state_every(prm)
+    st = (torch.empty((T // every, 3, batch, L), dtype=dtype, device=dev)
+          if every else None)
+    it = (torch.empty((batch, T // prm.pl_stride), dtype=torch.int32, device=dev)
+          if prm.record_iters else None)
     mode, sym = (("offgrid", "offgrid") if K else ("stride_1", "stride1") if S == 1
                  else ("stride_s", "strides"))
     fn = kernel_lib.function("trpl_horizon_{}_{}_{}".format(
@@ -500,19 +548,23 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             _ptr(vmask), _ptr(pl0), _ptr(wtab), _ptr(bdf),
             _ptr(sse), _ptr(esum), _ptr(conv), _ptr(its), _ptr(maxit),
             _ptr(n), _ptr(p), _ptr(e), _ptr(fulls), _ptr(execs), _ptr(pl),
+            _ptr(st) if st is not None and st.numel() else None,
+            _ptr(it) if it is not None and it.numel() else None,
             batch, L, T, S, K, num_exp, int(msk is not None and not K),
             int(prm.normalize), int(pl0 is not None), int(prm.pred_order),
             int(prm.max_iters), int(prm.chord_budget), int(prm.approx_inv),
-            int(prm.pl_stride), float(prm.tol), float(prm.step_tol), float(prm.log_scale),
+            int(prm.pl_stride), every, float(prm.tol), float(prm.step_tol), float(prm.log_scale),
             float(prm.min_val), float(prm.settle_guard),
             float(prm.skip_accept_factor), float(prm.skip_tighten),
             float(prm.stall), float(prm.step_tol_guard),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(_launch_error(rc, dtype, L, num_exp, K or S))
-    launches[mode if prm.chord else "stride_1_record" if pl is not None
-             else mode + "_full"] += 1
-    return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs, pl)
+    launches[mode if prm.chord else
+             "stride_1_record_states" if st is not None or it is not None else
+             "stride_1_record" if pl is not None else mode + "_full"] += 1
+    return HorizonOut(sse, esum, conv.bool(), its, maxit, n, p, e, fulls, execs, pl,
+                      st, it)
 
 
 def shared_memory(L: int, num_exp: int, slots: int, dtype=torch.float32) -> dict:
@@ -616,7 +668,13 @@ def solve_horizon_record(mat_nd, n_init, p_init, cfg: SolverConfig, e_init=None,
     and scoring no observations: the JAX package's ``solve(record_pl=True)``
     of a fused method, which it runs as coupled_newton.  Full Newton here
     is coupled_newton's step (models/solver.bdf_step) whatever cfg.method
-    names; every step's Newton failure fails its sample."""
+    names; every step's Newton failure fails its sample.
+
+    ``cfg.record_state_stride`` and ``cfg.record_iters`` add the JAX
+    layouts: ``states`` a tuple (N, P, E) of (T // pl_stride, batch, L),
+    NaN at the points whose step is not a multiple of record_state_stride,
+    and ``iters`` the (T // pl_stride,) batch-wide largest iteration count
+    of each point's steps."""
     kernel = horizon_chord if kernel is None else kernel
     e0 = torch.zeros_like(n_init) if e_init is None else e_init
     prm = HorizonParams(
@@ -624,10 +682,28 @@ def solve_horizon_record(mat_nd, n_init, p_init, cfg: SolverConfig, e_init=None,
         step_tol=0.0 if cfg.step_tol is None else float(cfg.step_tol),
         log_scale=0.0, min_val=0.0, max_iters=int(cfg.max_iters), normalize=False,
         pred_order=PRED_ORDER[cfg.predictor], settle_guard=0.0, skip_tighten=1.0,
-        stall=0.0, chord=False, pl_stride=int(cfg.pl_stride))
+        stall=0.0, chord=False, pl_stride=int(cfg.pl_stride),
+        state_stride=int(cfg.record_state_stride or 0),
+        record_iters=bool(cfg.record_iters))
     no_obs = n_init.new_empty((0, cfg.num_steps))
     out = kernel(mat_nd, n_init, p_init, e0, no_obs, None, None, None, None, prm)
-    return _result(out, None, None)._replace(pl=out.pl)
+    return _result(out, None, None)._replace(
+        pl=out.pl,
+        states=None if out.states is None else _expand_states(
+            out.states, cfg.num_steps // prm.pl_stride, state_every(prm) // prm.pl_stride),
+        iters=None if out.iters is None else out.iters.amax(0))
+
+
+def _expand_states(frames, n_outer: int, step: int):
+    """The state trace's frames (F, 3, batch, L), one every ``step``
+    recorded points, as the JAX package's (N, P, E) of (n_outer, batch, L)
+    with NaN at the other points; views of the frames when every point
+    has one."""
+    if step == 1:
+        return tuple(frames.unbind(1))
+    full = frames.new_full((3, n_outer) + tuple(frames.shape[2:]), float("nan"))
+    full[:, step - 1::step] = frames.transpose(0, 1)
+    return tuple(full.unbind(0))
 
 
 def solve_coarse_phase_fused(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,

@@ -5,6 +5,15 @@
   same flags, thresholds and exit code).
 * ``posterior_equivalence``: the fast ladder against exact fixed-dt
   stepping over one sample matrix, ranked likelihoods compared.
+* ``sweep`` -> ``run_sweep --backend solver|oracle`` -> ``compare`` /
+  ``overlay``: the reference's Testing/ pipeline over one npz format (a
+  Cartesian sweep file; result files with N/P/E snapshots and the PL
+  trace), the solver through models/driver.pvsim and the oracle through
+  the scipy integrator of models/oracle.py.
+* ``corner_cache``: the corner gate's parameter matrices and its shipped
+  oracle results.
+* ``nonconverged``: where in the parameter box a run's NaN samples lie.
 
-Each takes ``--device cuda|cpu`` (default ``cuda``), as ``run.py`` does.
+Each tool that runs the solver takes ``--device cuda|cpu`` (default
+``cuda``), as ``run.py`` does.
 """

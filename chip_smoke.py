@@ -69,6 +69,23 @@ Phases, each printed on its own line with its seconds:
               CUDA events.  time_step_loops -- the step-loop route of the
               same solve (coupled_newton; coupled_newton_pallas) per step on
               a short horizon, against the record launch per step.
+    compare_record_states, time_record_states -- the record launch with
+              the state and iteration traces of the forward model's
+              standalone mode (models/driver.pvsim): kernel vs plain
+              (group=1) on the 256-step phase, float64 (counts and
+              iteration traces equal, frames and N/P/E bitwise) and float32;
+              then one launch at main_pvsim's shape timed by CUDA events.
+    main_pvsim -- ``python -m bayesian_inference_trpl_tpu_torch.tools.run_sweep``
+              (its main, in this process) on a full-width sweep (1,024
+              production-box samples, 80,000 steps, the state every 800):
+              exactly one record launch; its PL trace against the PL of
+              its state snapshots.
+    corner_gate -- the port's solver against the scipy oracle's shipped
+              results on the 32 box and 16 mu-asymmetric corners at T0, 2 T0
+              and 4 T0 (float64, one record launch each), asserted at the
+              JAX package's bounds (tests/test_corner_gate.py); at T0 also
+              coupled_newton_pallas, held to the record launch.  Missing
+              oracle files fail the script.
 12. main_exact -- as 3 on a TOML with no ladder and the geometric
               predictor: exactly one stride-1 launch per chunk and curve.
     main_interp -- as 3 with main_offgrid's observations and
@@ -204,6 +221,29 @@ INTERP_SAMPLES = 4096
 RECORD_SHORT_SCHED = ((1, 256),)
 RECORD_F64_RTOL = 1e-12
 STEP_LOOP_STEPS = (("coupled_newton", 8), ("coupled_newton_pallas", 128))
+# The forward model's standalone mode (models/driver.pvsim): the record
+# launch with the state and iteration traces against its plain version on
+# the 256-step phase, float64 at (pl_stride, state stride) pairs and
+# float32 (iteration traces equal on F32_MIN_SHARE of the samples, their
+# frames within RECORD_STATES_F32_RTOL); main_pvsim's full-width sweep
+# (PVSIM_SAMPLES from accuracy_gate.sample_production_box, power_scan's
+# grid, the state and PL every PVSIM_STRIDE steps: run_sweep's snapshot
+# gcd at T = 80,000, 100 frames).
+RECORD_STATES_F64 = ((1, 1), (2, 4))
+RECORD_STATES_F32 = (4, 8)
+RECORD_STATES_F32_RTOL = 1e-6
+PVSIM_SAMPLES = 1024
+PVSIM_STRIDE = 800
+# main_pvsim's PL trace against the PL of its state snapshots (float32, two
+# summation orders), relative, beside an absolute floor of this share of
+# the sample's t = 0 PL (late points of fast decays cancel to rounding).
+PVSIM_PL_RTOL = 1e-4
+# corner_gate: coupled_newton_pallas (the per-step kernel's step loop)
+# against the record launch at T0, float64: N, P and PL relative, E of
+# E_SCALE [V/nm], the field of the mu-asymmetric corners (2-4e-4 V/nm; the
+# ambipolar corners' true E is 0 and their E rounding noise).
+CORNER_PALLAS_RTOL = 1e-10
+E_SCALE = 1e-4
 # main_resume: samples, and the checkpoint after which the first run stops
 # (curve 1, 2 of its 4 chunks done).
 RESUME_SAMPLES = 4096
@@ -303,7 +343,7 @@ def ladder_schedule(short):
 
 def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
                   short=False, predictor="quadratic", L=None, sched=None,
-                  throughput=False, pl_stride=0):
+                  throughput=False, pl_stride=0, state_stride=None):
     """One curve of the power_scan configuration at ``num`` samples, on the
     full or the shortened ladder (or ``sched``); with ``offgrid`` its
     observations at the log-spaced times, as slot tables.  ``predictor``
@@ -311,8 +351,10 @@ def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
     ``sched``'s length under the throughput chord profile (the exact
     mode's); ``pl_stride`` > 0 records the PL trace every pl_stride steps
     over one fine phase of ``sched``'s length, with no observations (the
-    interpolation fallback's solve).  Returns run(kernel), which solves it
-    with ``method`` and the given horizon-kernel entry."""
+    interpolation fallback's solve); ``state_stride`` also records the state
+    every that many steps and the iteration trace (pvsim's solve).  Returns
+    run(kernel), which solves it with ``method`` and the given horizon-kernel
+    entry."""
     from bayesian_inference_trpl_tpu_torch import physics
     from bayesian_inference_trpl_tpu_torch.models.driver import SimParams, pl_log_scale
     from bayesian_inference_trpl_tpu_torch.models.solver import FusedObs
@@ -352,7 +394,8 @@ def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
         return run
     if pl_stride:
         from bayesian_inference_trpl_tpu_torch.models.solver import solve
-        cfg = sim.solver_config()._replace(num_steps=sched[0][1], pl_stride=pl_stride)
+        cfg = sim.solver_config(state_stride)._replace(
+            num_steps=sched[0][1], pl_stride=pl_stride, record_iters=bool(state_stride))
 
         def run(kernel):
             return solve(mat, n0, p0, torch.zeros_like(n0), cfg, kernel=kernel)
@@ -376,10 +419,11 @@ def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
     return run
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call of ``fn`` on the card: one warm-up call,
-    then CUDA events around ``reps`` calls."""
-    fn()
+def cuda_ms(fn, reps, warmup=True):
+    """Mean milliseconds per call of ``fn`` on the card: one warm-up call
+    (unless ``warmup`` is False), then CUDA events around ``reps`` calls."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -391,9 +435,12 @@ def cuda_ms(fn, reps):
 
 
 def record(prm, args, **kw):
+    states = bool(prm.state_stride or prm.record_iters)
     return dict(stride=prm.stride, K=prm.offgrid_k, chord=prm.chord,
-                pl_stride=prm.pl_stride, steps=args[4].shape[1], args=args,
+                pl_stride=prm.pl_stride, states=states, steps=args[4].shape[1], args=args,
                 label=(f"off-grid K {prm.offgrid_k:>2}" if prm.offgrid_k
+                       else f"record every {prm.pl_stride}, states every "
+                       f"{prm.state_stride}" if states
                        else f"record every {prm.pl_stride}" if prm.pl_stride
                        else f"stride {prm.stride:>2}"), **kw)
 
@@ -634,6 +681,12 @@ def main():
     launch_s = compare_exact(hk, args.seed, err64, plain32, timing)
     record_s = compare_record(hk, args.seed, err64, plain32, timing)
     time_step_loops(args.seed, record_s)
+    # the forward model's standalone mode: the record launch with the state
+    # and iteration traces, pvsim through run_sweep, and the corner gate
+    compare_record_states(hk, args.seed, err64, plain32)
+    time_record_states(hk, args.seed, timing)
+    main_pvsim(paths, args.seed)
+    corner_gate(paths)
     sizes = exact_sizes(time.perf_counter() - t_all, launch_s, record_s)
     paths.run("", "fused_horizon_chord", sizes["main_exact"], {"stride_1": 1}, exact=True)
     paths.run("interp", "fused_horizon_chord", sizes["main_interp"], {"stride_1_record": 1})
@@ -656,13 +709,16 @@ def main():
                          replaces="bayesian_inference_trpl_tpu/ops/pallas/newton_kernel.py:92",
                          wrapper_ms=float(np.mean([r["wrapper_ms"] for r in t])))
         else:
-            body = "full" if mode.endswith(("_full", "_record")) else "chord"
-            # The record output replaces no pallas_call: the JAX package
-            # records PL in its coupled_newton XLA scan.
+            body = "full" if mode.endswith(("_full", "_record", "_states")) else "chord"
+            # The record outputs replace no pallas_call: the JAX package
+            # records PL, states and iterations in its coupled_newton XLA
+            # scan.
             ident = dict(name=f"horizon_{body}_{mode.replace('_full', '')}",
                          source="bayesian_inference_trpl_tpu_torch/csrc/horizon_kernel.cu",
                          replaces=("bayesian_inference_trpl_tpu/models/solver.py:367"
                                    if mode.endswith("_record") else
+                                   "bayesian_inference_trpl_tpu/models/solver.py:411"
+                                   if mode.endswith("_states") else
                                    "bayesian_inference_trpl_tpu/ops/pallas/horizon_kernel.py:887"))
         return dict(
             ident, route="cuda", launches=counts[mode], max_abs_err=err64[mode],
@@ -675,7 +731,8 @@ def main():
 
     print(json.dumps({"kernels": [entry(m) for m in (
         "stride_1", "stride_s", "offgrid", "stride_1_full", "stride_s_full",
-        "offgrid_full", "stride_1_exact", "stride_1_record", "newton_step")]}))
+        "offgrid_full", "stride_1_exact", "stride_1_record", "stride_1_record_states",
+        "newton_step")]}))
     phase("total", t_all, "")
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -711,8 +768,8 @@ def entry_layout(hk, nk, mode, recs, ptx):
         lays = [hk.launch_layout(batch, L, r["out"].sse.shape[0], r["stride"], r["K"],
                                  r["chord"]) for r in recs]
         pat = "horizon_kernelIfLi4ELi{}ELi{}EE".format(
-            MODE_ARG[mode.replace("_full", "").replace("_exact", "").replace("_record", "")],
-            int(mode.endswith(("_full", "_record"))))
+            MODE_ARG[re.sub(r"_(full|exact|record|states)", "", mode)],
+            int(mode.endswith(("_full", "_record", "_states"))))
     spill = [(regs, st, ld) for name, regs, st, ld, _ in ptx if pat in name]
     lo = min(lays, key=lambda d: d["samples_per_sm"])
     print(f"  layout {mode}: {lo['samples_per_block']} samples per block of "
@@ -926,6 +983,256 @@ def time_step_loops(seed, record_s):
     phase("time_step_loops", t0, "the step-loop route per step, for the ratio")
 
 
+def compare_record_states(hk, seed, err64, plain32):
+    """The record launch with the state and iteration traces (pvsim's
+    solve): kernel vs plain (group = 1) on the 256-step phase, float64 at 64
+    samples for each RECORD_STATES_F64 pair (counts and iteration traces
+    equal, frames and final N/P/E bitwise, PL within RECORD_F64_RTOL) and
+    float32 at 1024 (iteration traces equal on F32_MIN_SHARE of the samples,
+    their frames within RECORD_STATES_F32_RTOL)."""
+    mode = "stride_1_record_states"
+    L = POWER_SCAN["L"]
+    t0 = time.perf_counter()
+    for pl_stride, rss in RECORD_STATES_F64:
+        (r,) = compare_phase(hk, ladder_inputs(64, torch.float64, seed, sched=RECORD_SHORT_SCHED,
+                                               pl_stride=pl_stride, state_stride=rss), "f64")
+        check_f64(r)
+        out, ref = r["out"], r["ref"]
+        every = pl_stride * rss // int(np.gcd(pl_stride, rss))
+        T, batch = r["steps"], out.n.shape[0]
+        if (out.states.shape != (T // every, 3, batch, L)
+                or out.iters.shape != (batch, T // pl_stride)):
+            raise AssertionError(f"f64 {r['label']}: traces {tuple(out.states.shape)} "
+                                 f"{tuple(out.iters.shape)}")
+        if not (torch.equal(out.states, ref.states) and torch.equal(out.iters, ref.iters)):
+            raise AssertionError(f"f64 {r['label']}: state or iteration trace not bitwise "
+                                 f"the plain version's")
+        rel = float(((out.pl - ref.pl).abs() / ref.pl.abs().clamp_min(1e-300)).max())
+        if rel > RECORD_F64_RTOL:
+            raise AssertionError(f"f64 {r['label']}: PL rel err {rel:.3e}")
+        err64[mode] = max(err64.get(mode, 0.0), float((out.pl - ref.pl).abs().max()))
+        print(f"  f64 {r['label']} x {T} steps, {batch} samples: counts and iteration traces "
+              f"equal, {out.states.shape[0]} frames and N/P/E bitwise, PL max rel err "
+              f"{rel:.3e}, worst per-point iterations {int(out.iters.max())}")
+    pl_stride, rss = RECORD_STATES_F32
+    (r,) = compare_phase(hk, ladder_inputs(1024, torch.float32, seed, sched=RECORD_SHORT_SCHED,
+                                           pl_stride=pl_stride, state_stride=rss), "f32")
+    out, ref = r["out"], r["ref"]
+    same = (out.iters == ref.iters).all(1)
+    scale = ref.states.abs()
+    scale[:, 2] = scale[:, 2].amax(-1, keepdim=True).expand(-1, -1, scale.shape[-1])
+    rel = ((out.states - ref.states).abs() / scale.clamp_min(1e-30))[:, :, same]
+    share, worst = float(same.float().mean()), float(rel.max()) if rel.numel() else 0.0
+    if share < F32_MIN_SHARE or worst > RECORD_STATES_F32_RTOL:
+        raise AssertionError(f"f32 {r['label']}: iteration traces equal on {share:.4f}, "
+                             f"their frames within {worst:.2e}")
+    plain32[mode] = [r]
+    print(f"  f32 {r['label']} x {r['steps']} steps, {out.n.shape[0]} samples: iteration "
+          f"traces equal on "
+          f"{share:.4f}, their frames max rel diff {worst:.2e} (<= "
+          f"{RECORD_STATES_F32_RTOL}); plain {r['plain_ms']:.1f} ms")
+    phase("compare_record_states", t0, "record kernel with state and iteration traces vs "
+          "plain(group=1)")
+
+
+def time_record_states(hk, seed, timing):
+    """One record launch with both traces at main_pvsim's shape (1024
+    samples, 80,000 steps, PL and state every PVSIM_STRIDE steps, float32),
+    timed (warm-up + 1 launch, CUDA events); then the same launch with and
+    without the two traces in turns (without, with, with, without; one
+    launch each after a warm-up), for what the traces cost."""
+    mode = "stride_1_record_states"
+    t0 = time.perf_counter()
+    (r,) = time_phase(hk, ladder_inputs(1024, torch.float32, seed, sched=EXACT_SCHED,
+                                        pl_stride=PVSIM_STRIDE, state_stride=PVSIM_STRIDE),
+                      reps=1)
+    timing[mode] = [r]
+    out = r["out"]
+    args = r["args"]
+    bare = args[:-1] + (args[-1]._replace(state_stride=0, record_iters=False),)
+    turns = {"with": [], "without": []}
+    hk.horizon_chord(*bare)
+    for name in ("without", "with", "with", "without"):
+        a = args if name == "with" else bare
+        turns[name].append(cuda_ms(lambda: hk.horizon_chord(*a), 1, warmup=False))
+    print(f"  record launch at the same shape in turns, PL trace only: "
+          f"{turns['without'][0]:.3f} / {turns['without'][1]:.3f} ms; with the state and "
+          f"iteration traces: {turns['with'][0]:.3f} / {turns['with'][1]:.3f} ms "
+          f"({100 * (sum(turns['with']) / sum(turns['without']) - 1):+.2f}%)")
+    mb = out.states.numel() * out.states.element_size() / 1e6
+    print(f"  kernel f32 {r['label']} x {r['steps']} steps, {out.n.shape[0]} samples: "
+          f"{r['kernel_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{100 * r['bound_ms'] / r['kernel_ms']:.1f}% of it reached; the state trace "
+          f"{tuple(out.states.shape)} {mb:.1f} MB alone "
+          f"{mb * 1e6 / HBM_BYTES_PER_S * 1e3:.4f} ms); conv {int(out.conv.sum())}/"
+          f"{out.n.shape[0]}, "
+          f"its/sample {float(out.its.float().mean()):.1f}, finite frames "
+          f"{bool(torch.isfinite(out.states).all())}")
+    phase("time_record_states", t0, "one record launch with both traces at chunk 1024")
+
+
+def main_pvsim(paths, seed):
+    """The forward model's standalone mode at full width: ``python -m
+    ...tools.run_sweep`` (its main, in this process) on a sweep npz of
+    PVSIM_SAMPLES production-box samples on power_scan's grid, method
+    fused_horizon, float32, --device cuda: exactly one record launch with
+    the state and iteration traces.  Its PL trace must agree with the PL
+    of its state snapshots at the snapshot steps."""
+    from bayesian_inference_trpl_tpu_torch.tools import run_sweep
+    from bayesian_inference_trpl_tpu_torch.tools.accuracy_gate import sample_production_box
+    g = POWER_SCAN
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
+        sweep, out = os.path.join(tmp, "sweep.npz"), os.path.join(tmp, "pvsim.npz")
+        np.savez(sweep, mat_par=sample_production_box(PVSIM_SAMPLES, seed),
+                 length=g["thickness"], time=g["time"], L=g["L"], T=g["T"],
+                 tol_exp=g["tol_exp"], max_iters=g["max_iters"], init_mode="exp",
+                 ini_par=np.array([1e18 / 1e7 ** 3, 100.0]))
+        print(f"  main_pvsim: {PVSIM_SAMPLES} production-box samples, L {g['L']}, "
+              f"{g['T']} steps of {g['time'] / g['T'] * 1e3:g} ps, exp initial condition, "
+              f"tol_exp {g['tol_exp']}, max_iters {g['max_iters']}, float32, method "
+              f"fused_horizon", flush=True)
+        paths.zero()
+        t1 = time.perf_counter()
+        run_sweep.main([sweep, out, "--method", "fused_horizon", "--dtype", "float32",
+                        "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launched = {k: v for k, v in paths.launches().items() if v}
+        res = dict(np.load(out))
+    if launched != {"stride_1_record_states": 1}:
+        raise AssertionError(f"main_pvsim launched {launched}, expected one record launch "
+                             f"with states")
+    paths.counts["stride_1_record_states"] = 1
+    n, L = PVSIM_SAMPLES, g["L"]
+    steps = res["times"] / (g["time"] / g["T"])
+    shapes = {k: res[k].shape for k in ("N", "P", "E", "pl")}
+    if shapes != {"N": (n, 6, L), "P": (n, 6, L), "E": (n, 6, L),
+                  "pl": (n, g["T"] // PVSIM_STRIDE + 1)}:
+        raise AssertionError(f"main_pvsim shapes {shapes}")
+    conv = res["converged"]
+    finite = all(np.isfinite(res[k][conv]).all() for k in ("N", "P", "E", "pl"))
+    if not finite or conv.mean() < 0.99:
+        raise AssertionError(f"main_pvsim: converged share {conv.mean():.4f}, finite "
+                             f"{finite}")
+    mat = res["mat_par"]
+    dx = g["thickness"] / L
+    pl_snap = (mat[:, 4:5] * (res["N"] * res["P"] - (mat[:, 0] * mat[:, 1])[:, None, None])
+               .sum(-1) * dx)
+    pl_at = res["pl"][:, np.rint(steps / PVSIM_STRIDE).astype(int)]
+    diff = np.abs(pl_snap - pl_at)
+    ok = diff <= PVSIM_PL_RTOL * (np.abs(pl_at) + 1e-6 * np.abs(res["pl"][:, :1]))
+    if not ok[conv].all():
+        raise AssertionError(f"main_pvsim: PL trace and state snapshots disagree at "
+                             f"{int((~ok[conv]).sum())} points")
+    rel = (diff / np.abs(pl_at))[conv & (np.abs(pl_at) > 1e-6 * np.abs(res["pl"][:, :1])).all(1)]
+    phase("main_pvsim", t0, f"run_sweep --device cuda: {n} samples x {g['T']} steps in "
+          f"{wall:.2f} s ({n / wall * 60:.0f} sims/min), one record launch; converged "
+          f"{conv.mean():.4f}; snapshots at steps {steps.astype(int).tolist()} agree with "
+          f"the PL trace (max rel {float(rel.max()) if rel.size else 0.0:.2e})")
+
+
+def corner_gate(paths):
+    """The corner gate (tests/test_corner_gate.py's two tests, their
+    bounds): the port's run_sweep.run_solver with fused_horizon in float64
+    on the card (one record launch per refinement level) against the
+    shipped scipy-oracle results (tools/corner_cache; missing files fail
+    the script), for the 32 box corners and the 16 mu-asymmetric corners at
+    T0, 2 T0 and 4 T0; at T0 also coupled_newton_pallas (the per-step
+    kernel, one launch per step), held to the record launch within
+    CORNER_PALLAS_RTOL."""
+    from bayesian_inference_trpl_tpu_torch.tools import compare, run_sweep
+    from bayesian_inference_trpl_tpu_torch.tools.corner_cache import (
+        T0, corner_matrix, corner_sweep, e_corner_matrix, load_oracle)
+    t0 = time.perf_counter()
+    levels = (T0, 2 * T0, 4 * T0)
+
+    def solve(mat, T, method, want):
+        paths.zero()
+        t1 = time.perf_counter()
+        sol = run_sweep.run_solver(corner_sweep(mat, T), method, "float64", device="cuda")
+        torch.cuda.synchronize()
+        got = {k: v for k, v in paths.launches().items() if v}
+        if got != want:
+            raise AssertionError(f"corner gate {method} at T {T}: launched {got}, "
+                                 f"expected {want}")
+        if not sol["converged"].all():
+            raise AssertionError(f"corner gate {method} at T {T}: non-converged corners "
+                                 f"{np.where(~sol['converged'])[0].tolist()}")
+        return sol, time.perf_counter() - t1
+
+    for name, mat in (("box", corner_matrix()), ("mu-asymmetric", e_corner_matrix())):
+        oracle = load_oracle(corner_sweep(mat, T0 * 4))
+        errs, sols = {}, {}
+        for T in levels:
+            sols[T], secs = solve(mat, T, "fused_horizon", {"stride_1_record_states": 1})
+            errs[T] = {k: np.asarray(v) for k, v in
+                       compare.field_errors(sols[T], oracle, reduce="none").items()}
+            print(f"  corner gate {name} ({len(mat)} corners) T {T}: worst N "
+                  f"{errs[T]['N'].max():.3e}, P {errs[T]['P'].max():.3e}, E "
+                  f"{errs[T]['E'].max():.3e}, PL {errs[T]['PL'].max():.3e}; max |E| "
+                  f"{np.abs(sols[T]['E']).max():.3e} V/nm; one record launch, {secs:.2f} s",
+                  flush=True)
+        pallas, secs = solve(mat, T0, "coupled_newton_pallas", {"newton_step": T0})
+        worst = 0.0
+        for k in ("N", "P", "pl", "E"):
+            a, b = pallas[k], sols[T0][k]
+            den = E_SCALE if k == "E" else np.maximum(np.abs(b), 1e-300)
+            worst = max(worst, float((np.abs(a - b) / den).max()))
+        if worst > CORNER_PALLAS_RTOL:
+            raise AssertionError(f"corner gate {name}: coupled_newton_pallas differs from "
+                                 f"the record launch by {worst:.3e} > {CORNER_PALLAS_RTOL}")
+        print(f"  corner gate {name} T {T0}: coupled_newton_pallas ({T0} per-step "
+              f"launches, {secs:.2f} s) agrees with the record launch within {worst:.2e}")
+        (corner_box_gate if name == "box" else corner_e_gate)(errs, sols, levels)
+    phase("corner_gate", t0, "solver vs scipy oracle on 32 box and 16 mu-asymmetric "
+          "corners at T0, 2 T0, 4 T0 (record launch, float64): the JAX package's bounds "
+          "PASS")
+
+
+def corner_box_gate(errs, sols, levels):
+    """tests/test_corner_gate.py::test_corner_sweep_parity_with_dt_refined_e_gate's
+    bounds."""
+    T0, T1, T2 = levels
+    e0 = errs[T0]
+    checks = [("N max at T0 < 3e-2", e0["N"].max() < 3e-2),
+              ("P max at T0 < 3e-2", e0["P"].max() < 3e-2),
+              ("PL max at T0 < 4e-2", e0["PL"].max() < 4e-2),
+              ("N refinement ratio < 0.5", errs[T1]["N"].max() / e0["N"].max() < 0.5)]
+    sig = errs[T0]["E"] > 1e-12
+    ratios = np.concatenate([errs[T1]["E"][sig] / errs[T0]["E"][sig],
+                             errs[T2]["E"][sig] / errs[T1]["E"][sig]])
+    med = float(np.median(ratios)) if ratios.size else float("nan")
+    absE = float(np.abs(sols[T0]["E"]).max())
+    checks += [(f"meaningful-E corners {int(sig.sum())} >= 16", sig.sum() >= 16),
+               (f"E median refinement ratio {med:.4f} < 1.05", med < 1.05),
+               (f"ambipolar max |E| {absE:.3e} < 1e-9 V/nm", absE < 1e-9)]
+    _gate_verdict("box", checks)
+
+
+def corner_e_gate(errs, sols, levels):
+    """tests/test_corner_gate.py::test_e_corner_gate_mu_asymmetric's bounds."""
+    T0, T1, T2 = levels
+    e0, e2 = errs[T0], errs[T2]
+    med = float(np.median(np.concatenate([errs[T1]["E"] / e0["E"], e2["E"] / errs[T1]["E"]])))
+    checks = [("N max at T0 < 4e-2", e0["N"].max() < 4e-2),
+              ("P max at T0 < 4e-2", e0["P"].max() < 4e-2),
+              ("E max at T0 < 1e-1", e0["E"].max() < 1e-1),
+              ("PL max at T0 < 3e-2", e0["PL"].max() < 3e-2),
+              ("E max at 4 T0 < 5e-3", e2["E"].max() < 5e-3),
+              ("N max at 4 T0 < 4e-3", e2["N"].max() < 4e-3),
+              (f"E median refinement ratio {med:.3f} < 0.5", med < 0.5)]
+    _gate_verdict("mu-asymmetric", checks)
+
+
+def _gate_verdict(name, checks):
+    failed = [c for c, ok in checks if not ok]
+    print(f"  corner gate {name}: " + "; ".join(c for c, _ in checks)
+          + (": PASS" if not failed else f": FAIL {failed}"))
+    if failed:
+        raise AssertionError(f"corner gate {name} FAIL: {failed}")
+
+
 def resume_phase(paths, seed):
     """main_resume: the CLI on main's inputs stopped by a checkpoint write
     that raises after RESUME_STOP, then run again with --resume; P and the
@@ -1125,7 +1432,7 @@ def posterior_phase(hk, kind, num_samples, seed):
 
 def mode_of(r):
     if r["pl_stride"]:
-        return "stride_1_record"
+        return "stride_1_record_states" if r["states"] else "stride_1_record"
     mode = "offgrid" if r["K"] else "stride_1" if r["stride"] == 1 else "stride_s"
     return mode if r["chord"] else mode + "_full"
 

@@ -355,17 +355,19 @@ def test_launch_refuses_too_much_shared_memory(cuda_device):
         assert fit["block_bytes"] <= fit["optin_bytes"]
 
 
-def _record_calls(device, dtype, B, T, pl_stride):
+def _record_calls(device, dtype, B, T, pl_stride, **cfg_kw):
     """The record launch of solve(record_pl=True) for a fused method (full
     Newton at stride 1 over the whole horizon, no observations), with its
-    plain version's result (group = 1)."""
+    plain version's result (group = 1); ``cfg_kw`` adds SolverConfig fields
+    (record_state_stride, record_iters)."""
     mat, n0, p0, e0, _, cfg = _problem(device, dtype, B=B, T=T)
     calls = []
 
     def rec(*args):
         calls.append((args, hk.horizon_chord_plain(*args, group=1)))
         return calls[-1][1]
-    res = solver.solve(mat, n0, p0, e0, cfg._replace(pl_stride=pl_stride), kernel=rec)
+    res = solver.solve(mat, n0, p0, e0, cfg._replace(pl_stride=pl_stride, **cfg_kw),
+                       kernel=rec)
     (args, ref), = calls
     prm = args[-1]
     assert (prm.stride, prm.offgrid_k, prm.chord, prm.pl_stride) == (1, 0, False, pl_stride)
@@ -426,4 +428,73 @@ def test_record_trace_that_does_not_fit_raises(cuda_device):
     before = dict(hk.launches)
     with pytest.raises(torch.OutOfMemoryError):
         solver.solve(mat, n0, p0, e0, cfg._replace(num_steps=20_000_000))
+    assert hk.launches == before
+
+
+@pytest.mark.parametrize("rss", [1, 4])
+def test_record_states_match_plain_f64(cuda_device, rss):
+    """The state and iteration traces of the record launch (PL every 2
+    steps, the state every lcm(2, rss) steps), float64: iteration traces
+    and counts equal, frames and final N/P/E bitwise; one launch, counted
+    as a record launch with states."""
+    args, ref = _record_calls(cuda_device, torch.float64, 8, 256, 2,
+                              record_state_stride=rss, record_iters=True)
+    every = 2 if rss == 1 else 4
+    assert ref.states.shape == (256 // every, 3, 8, 128) and ref.iters.shape == (8, 128)
+    before = dict(hk.launches)
+    out = hk.horizon_chord(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out.states, ref.states) and torch.equal(out.iters, ref.iters)
+    for name in ("conv", "its", "maxit", "n", "p", "e"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    torch.testing.assert_close(out.pl, ref.pl, rtol=1e-12, atol=0.0)
+    assert torch.equal(out.states[-1], torch.stack((out.n, out.p, out.e)))
+    assert hk.launches["stride_1_record_states"] - before["stride_1_record_states"] == 1
+    assert hk.launches["stride_1_record"] == before["stride_1_record"]
+
+
+def test_record_states_match_plain_f32(cuda_device):
+    """float32, 256 samples: a Newton decision may flip at a threshold (the
+    two sum residual norms in other orders).  Required: per-sample iteration
+    traces equal on >= 99% of the samples, and on those the frames within
+    1e-6 relative (E of its sample's scale)."""
+    args, ref = _record_calls(cuda_device, torch.float32, 256, 256, 4,
+                              record_state_stride=8, record_iters=True)
+    out = hk.horizon_chord(*args)
+    torch.cuda.synchronize()
+    same = (out.iters == ref.iters).all(1)
+    assert float(same.float().mean()) >= 0.99
+    scale = ref.states.abs()
+    scale[:, 2] = scale[:, 2].amax(-1, keepdim=True).expand(-1, -1, scale.shape[-1])
+    rel = ((out.states - ref.states).abs() / scale.clamp_min(1e-30))[:, :, same]
+    assert float(rel.max()) <= 1e-6
+
+
+def test_record_states_tail_1001(cuda_device):
+    """A batch of 1001, float64: the traces and the final state bitwise,
+    and solve's JAX layout (NaN where no frame falls) from the launch."""
+    args, ref = _record_calls(cuda_device, torch.float64, 1001, 64, 2,
+                              record_state_stride=8, record_iters=True)
+    out = hk.horizon_chord(*args)
+    torch.cuda.synchronize()
+    for name in ("states", "iters", "conv", "n", "p", "e"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    mat, n0, p0, e0, _, cfg = _problem(cuda_device, torch.float64, B=1001, T=64)
+    res = solver.solve(mat, n0, p0, e0, cfg._replace(pl_stride=2, record_state_stride=8,
+                                                     record_iters=True))
+    n_tr = res.states[0]
+    assert n_tr.shape == (32, 1001, 128) and res.iters.shape == (32,)
+    assert torch.isnan(n_tr[0::4]).all() and torch.equal(n_tr[3::4], out.states[:, 0])
+    assert torch.equal(res.iters, out.iters.amax(0))
+
+
+def test_record_state_trace_that_does_not_fit_raises(cuda_device):
+    """A state trace larger than the card (40,000 float64 frames of 1001
+    samples x 3 x 128 cells, 123 GB, beside a 320 MB PL trace) raises
+    torch.OutOfMemoryError before any launch."""
+    mat, n0, p0, e0, _, cfg = _problem(cuda_device, torch.float64, B=1001, T=8)
+    before = dict(hk.launches)
+    with pytest.raises(torch.OutOfMemoryError):
+        solver.solve(mat, n0, p0, e0, cfg._replace(num_steps=400_000, pl_stride=10,
+                                                   record_state_stride=10))
     assert hk.launches == before

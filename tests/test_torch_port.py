@@ -38,11 +38,12 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 23
-    assert {"bayesian_inference_trpl_tpu_torch.ops.kernel_lib",
-            "bayesian_inference_trpl_tpu_torch.ops.newton_kernel",
-            "bayesian_inference_trpl_tpu_torch.tools.accuracy_gate",
-            "bayesian_inference_trpl_tpu_torch.tools.posterior_equivalence"} <= set(mods)
+    assert len(mods) >= 30
+    assert {"bayesian_inference_trpl_tpu_torch." + m for m in (
+        "ops.kernel_lib", "ops.newton_kernel", "tools.accuracy_gate",
+        "tools.posterior_equivalence", "models.oracle", "tools.sweep", "tools.run_sweep",
+        "tools.compare", "tools.overlay", "tools.corner_cache",
+        "tools.nonconverged")} <= set(mods)
 
 
 def test_port_sources_name_no_jax():
