@@ -123,13 +123,13 @@ class SimFlags:
 @dataclass
 class DeviceConfig:
     """Replaces the reference gpu_info (parallel_bayes_gpu.py:104-105):
-    chunking per device plus device count.  The port runs on one device
-    (ROADMAP A15 adds more)."""
+    chunking per device plus device count (per process; torchrun runs
+    more than one process, parallel/distributed.py)."""
     chunk_per_device: int = 1024
     n_devices: Optional[int] = None     # default: all local devices
     dtype: str = "default"              # "float32" | "float64" | "default"
-    # Device trace directory; None = off.  Not supported by the port yet:
-    # a set value raises.
+    # Directory of a torch.profiler trace of simulate (one Chrome trace per
+    # process, pipeline.profile_trace); None = off.
     profile_dir: Optional[str] = None
     # Retry passes of the JAX package over each curve's non-converged
     # samples (failure-only batches).  Kept so that its TOML files load; the

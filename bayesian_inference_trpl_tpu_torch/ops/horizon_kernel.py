@@ -544,20 +544,25 @@ def horizon_chord(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     fn = kernel_lib.function("trpl_horizon_{}_{}_{}".format(
         "chord" if prm.chord else "full", sym,
         "f32" if dtype == torch.float32 else "f64"), _ARGTYPES)
-    rc = fn(_ptr(mat), _ptr(n0), _ptr(p0), _ptr(e0), _ptr(obs), _ptr(msk),
-            _ptr(vmask), _ptr(pl0), _ptr(wtab), _ptr(bdf),
-            _ptr(sse), _ptr(esum), _ptr(conv), _ptr(its), _ptr(maxit),
-            _ptr(n), _ptr(p), _ptr(e), _ptr(fulls), _ptr(execs), _ptr(pl),
-            _ptr(st) if st is not None and st.numel() else None,
-            _ptr(it) if it is not None and it.numel() else None,
-            batch, L, T, S, K, num_exp, int(msk is not None and not K),
-            int(prm.normalize), int(pl0 is not None), int(prm.pred_order),
-            int(prm.max_iters), int(prm.chord_budget), int(prm.approx_inv),
-            int(prm.pl_stride), every, float(prm.tol), float(prm.step_tol), float(prm.log_scale),
-            float(prm.min_val), float(prm.settle_guard),
-            float(prm.skip_accept_factor), float(prm.skip_tighten),
-            float(prm.stall), float(prm.step_tol_guard),
-            torch.cuda.current_stream(dev).cuda_stream)
+    # The C entry sets the kernel's attributes and launches on the current
+    # CUDA device, not on the inputs' device: with more than one card, a
+    # launch for cuda:1 made while cuda:0 is current would fail or land on
+    # the wrong card.
+    with torch.cuda.device(dev):
+        rc = fn(_ptr(mat), _ptr(n0), _ptr(p0), _ptr(e0), _ptr(obs), _ptr(msk),
+                _ptr(vmask), _ptr(pl0), _ptr(wtab), _ptr(bdf),
+                _ptr(sse), _ptr(esum), _ptr(conv), _ptr(its), _ptr(maxit),
+                _ptr(n), _ptr(p), _ptr(e), _ptr(fulls), _ptr(execs), _ptr(pl),
+                _ptr(st) if st is not None and st.numel() else None,
+                _ptr(it) if it is not None and it.numel() else None,
+                batch, L, T, S, K, num_exp, int(msk is not None and not K),
+                int(prm.normalize), int(pl0 is not None), int(prm.pred_order),
+                int(prm.max_iters), int(prm.chord_budget), int(prm.approx_inv),
+                int(prm.pl_stride), every, float(prm.tol), float(prm.step_tol),
+                float(prm.log_scale), float(prm.min_val), float(prm.settle_guard),
+                float(prm.skip_accept_factor), float(prm.skip_tighten),
+                float(prm.stall), float(prm.step_tol_guard),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(_launch_error(rc, dtype, L, num_exp, K or S))
     launches[mode if prm.chord else

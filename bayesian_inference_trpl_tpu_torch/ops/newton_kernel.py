@@ -94,7 +94,10 @@ def step_launcher(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
 
     def launch():
         global launches
-        kernel_lib.check(fn(*args), "newton step kernel")
+        # The C entry launches on the current CUDA device, which need not be
+        # the inputs' (horizon_kernel.horizon_chord says why that matters).
+        with torch.cuda.device(dev):
+            kernel_lib.check(fn(*args), "newton step kernel")
         launches += 1
     # Every tensor the launch reads or writes lives as long as the launch.
     launch.keep = (mat, Nk0, Pk0, bN, bP, bE, scalars, n, p, e, its, done)

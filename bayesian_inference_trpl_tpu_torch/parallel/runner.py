@@ -1,12 +1,19 @@
-"""Chunked single-device inference runner.
+"""Chunked inference runner over a sample mesh.
 
 One chunk program (solver + fused likelihood, or solver + interpolated
-likelihood) evaluates a chunk of samples on the device; the host loops
-over chunks, bounding device memory like the reference's ``sims_per_gpu``
-batching (bayeslib.py:131-146), and accumulates per-sample
-log-likelihoods.  The next chunk is enqueued before the previous one is
-read back, so host-side preparation overlaps device work.  More than one
-device is ROADMAP A15.
+likelihood) evaluates a chunk of samples; the host loops over chunks,
+bounding device memory like the reference's ``sims_per_gpu`` batching
+(bayeslib.py:131-146), and accumulates per-sample log-likelihoods.
+
+A global chunk is ``chunk_per_device`` x the mesh's devices x the
+processes (parallel/distributed.py), as in the JAX package's
+``ShardedRunner``: rank r takes rows [r c, (r + 1) c) of each padded
+chunk, and its device d the d-th ``chunk_per_device`` rows of those.
+Every device's share of a chunk is enqueued before any is read back, and
+the next chunk before the previous one is harvested, so host-side
+preparation overlaps device work.  The harvest gathers the blocks of all
+processes in rank order, so chunk indices (``chunk_done``, checkpoints)
+count global chunks.
 
 There is no retry pass for non-converged samples (the JAX package's
 ``_retry_nonconverged``): every path of this port takes its chord
@@ -19,6 +26,7 @@ accumulator, and nothing would repair it.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass
@@ -34,6 +42,8 @@ from ..models.solver import FusedObs, SolverConfig, solve
 from ..models.twophase import solve_multiphase
 from ..ops.likelihood import (FLOAT_MIN, fastlog, interp_pl,
                               log_likelihood_from_terms)
+from . import distributed
+from .mesh import make_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -131,17 +141,45 @@ def _chunk_likelihood_interp(mat_nd, mag, dn, obs_times, obs_values, obs_mask,
     return ll, res.converged
 
 
-class Runner:
-    """Chunked executor on one device (``cuda`` unless told ``cpu``)."""
+def on_device(dev: torch.device):
+    """``dev`` as the current CUDA device inside the block (nothing on the
+    CPU): launches and the current stream follow the current device."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
-    def __init__(self, chunk: int = 1024, device="cuda"):
-        self.device = torch.device(device)
-        self.chunk = int(chunk)
+
+class Runner:
+    """Chunked executor over a sample mesh: ``mesh`` (a tuple of devices,
+    parallel/mesh.make_mesh), or ``device`` alone for a one-device mesh
+    (``cuda`` unless told ``cpu``).  ``chunk``: samples per device per
+    chunk; ``self.chunk`` is the global chunk over every process's
+    devices, ``self.n_devices`` their number."""
+
+    def __init__(self, chunk: int = 1024, device="cuda", mesh=None):
+        self.mesh = make_mesh([device] if mesh is None else mesh)
+        self.chunk_per_device = int(chunk)
+        self.rank = distributed.process_index()
+        # Cards this process shares with another (parallel/distributed.py).
+        self.shared_cards = distributed.check_layout(self.mesh)
+        self.n_devices = len(self.mesh) * distributed.process_count()
+        self.chunk = self.chunk_per_device * self.n_devices
         self.timers = RunnerTimers()
 
-    def _put(self, arr, dtype):
-        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
-                               device=self.device)
+    @staticmethod
+    def _put(arr, dtype, device):
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype, device=device)
+
+    def _per_device(self, make):
+        """``make(device)`` for each device of the mesh, called once per
+        distinct device (a curve's constants go to each device once)."""
+        made = {}
+        for dev in self.mesh:
+            if dev not in made:
+                with on_device(dev):
+                    made[dev] = make(dev)
+        return [made[dev] for dev in self.mesh]
+
+    def _replicate(self, arr, dtype):
+        return self._per_device(lambda dev: self._put(arr, dtype, dev))
 
     def _pad(self, mat_c, mag_c):
         pad = self.chunk - len(mat_c)
@@ -179,13 +217,14 @@ class Runner:
 
         Returns (out (num_exp, n), converged (n,)).
         """
-        obs = self._put(obs_log_values, dtype)
-        mask = None if obs_mask is None else self._put(obs_mask, dtype)
+        obs = self._replicate(obs_log_values, dtype)
+        mask = ((None,) * len(self.mesh) if obs_mask is None
+                else self._replicate(obs_mask, dtype))
         statics = dict(cfg=sim.solver_config(), normalize=normalize,
                        fast=sim.fast_phases)
 
-        def chunk_fn(mat_c, mag_c, dn, log_scale):
-            return _chunk_likelihood(mat_c, mag_c, dn, obs, log_scale, mask,
+        def chunk_fn(d, mat_c, mag_c, dn, log_scale):
+            return _chunk_likelihood(mat_c, mag_c, dn, obs[d], log_scale, mask[d],
                                      **statics)
         return self._run(chunk_fn, X, sim, ini_par, len(obs_log_values), dtype,
                          progress, chunk_done, out, start_chunk, sample_idx,
@@ -205,16 +244,18 @@ class Runner:
             (times mapped with this sim's dt and the given schedule).
           schedule: ((stride, num_fine_steps), ...) covering sim.T.
         """
-        dev_tables = OffGridTables(
-            phases=tuple(tuple(self._put(a, dtype) for a in tbl)
-                         for tbl in tables.phases),
-            v0=self._put(tables.v0, dtype), m0=self._put(tables.m0, dtype),
-            n_obs=self._put(tables.n_obs, dtype))
+        def put_tables(dev):
+            return OffGridTables(
+                phases=tuple(tuple(self._put(a, dtype, dev) for a in tbl)
+                             for tbl in tables.phases),
+                v0=self._put(tables.v0, dtype, dev), m0=self._put(tables.m0, dtype, dev),
+                n_obs=self._put(tables.n_obs, dtype, dev))
+        dev_tables = self._per_device(put_tables)
         statics = dict(cfg=sim.solver_config(), normalize=normalize,
                        schedule=tuple((int(s), int(c)) for s, c in schedule))
 
-        def chunk_fn(mat_c, mag_c, dn, log_scale):
-            return _chunk_likelihood_offgrid(mat_c, mag_c, dn, dev_tables,
+        def chunk_fn(d, mat_c, mag_c, dn, log_scale):
+            return _chunk_likelihood_offgrid(mat_c, mag_c, dn, dev_tables[d],
                                              log_scale, **statics)
         return self._run(chunk_fn, X, sim, ini_par, len(tables.v0), dtype,
                          progress, chunk_done, out, start_chunk)
@@ -249,18 +290,18 @@ class Runner:
             times_p[e, :m] = obs_times[e]
             values_p[e, :m] = obs_values[e]
             mask_p[e, :m] = 1.0 if obs_weights is None else obs_weights[e]
+
         # Times go to the device in the compute dtype, as the JAX package
         # places them: the interpolation's rounding is part of the result.
-        times_d, values_d, mask_d = (self._put(a, dtype)
-                                     for a in (times_p, values_p, mask_p))
-        sim_times = self._put(sim.pl_times, dtype)
-        pl_scale = torch.as_tensor(1.0 / (sim.dx ** 2 * sim.dt), dtype=dtype,
-                                   device=self.device)
+        def put_curve(dev):
+            return (*(self._put(a, dtype, dev) for a in (times_p, values_p, mask_p,
+                                                          sim.pl_times)),
+                    torch.as_tensor(1.0 / (sim.dx ** 2 * sim.dt), dtype=dtype, device=dev))
+        curve = self._per_device(put_curve)
         statics = dict(cfg=sim.solver_config(), normalize=normalize, log_pl=log_pl)
 
-        def chunk_fn(mat_c, mag_c, dn, _log_scale):
-            return _chunk_likelihood_interp(mat_c, mag_c, dn, times_d, values_d,
-                                            mask_d, sim_times, pl_scale, **statics)
+        def chunk_fn(d, mat_c, mag_c, dn, _log_scale):
+            return _chunk_likelihood_interp(mat_c, mag_c, dn, *curve[d], **statics)
         return self._run(chunk_fn, X, sim, ini_par, num_exp, dtype, progress,
                          chunk_done, out, start_chunk)
 
@@ -273,21 +314,33 @@ class Runner:
         n = len(X_sub)
         mat_nd_all = physics.nondimensionalize(X_sub[:, :12], sim.dx, sim.dt)
         mag_all = X_sub[:, 12]
-        dn = initial_excess_density(sim, ini_par, "points", dtype=dtype,
-                                    device=self.device)
+        dn = self._per_device(lambda dev: initial_excess_density(
+            sim, ini_par, "points", dtype=dtype, device=dev))
         log_scale = pl_log_scale(sim)
         if out is None:
             out = np.zeros((num_exp, len(X)))
         conv = np.ones(n, dtype=bool)
+        cpd = self.chunk_per_device
+        first = self.rank * cpd * len(self.mesh)
 
         def dispatch(mat_c, mag_c):
-            return chunk_fn(self._put(mat_c, dtype), self._put(mag_c, dtype),
-                            dn, log_scale)
+            """Enqueue this process's rows of a padded chunk, one share per
+            device, before anything is read back."""
+            outs = []
+            for d, dev in enumerate(self.mesh):
+                rows = slice(first + d * cpd, first + (d + 1) * cpd)
+                with on_device(dev):
+                    outs.append(chunk_fn(d, self._put(mat_c[rows], dtype, dev),
+                                         self._put(mag_c[rows], dtype, dev), dn[d],
+                                         log_scale))
+            return outs
 
-        def harvest(ci, lo, size, ll, ok):
+        def harvest(ci, lo, size, outs):
             t0 = time.perf_counter()
-            ll = ll.cpu().numpy()                 # device sync point
-            ok = ok.cpu().numpy()
+            ll = np.concatenate([o[0].cpu().numpy() for o in outs], 1)  # device sync
+            ok = np.concatenate([o[1].cpu().numpy() for o in outs])
+            ll = distributed.allgather_to_host(ll, axis=1)     # rank order
+            ok = distributed.allgather_to_host(ok)
             self.timers.solver_time += time.perf_counter() - t0
             t0 = time.perf_counter()
             cols = (slice(lo, lo + size) if sample_idx is None
@@ -307,11 +360,11 @@ class Runner:
             if progress is not None:
                 progress(ci, n_chunks)
             t0 = time.perf_counter()
-            ll, ok = dispatch(*self._pad(mat_nd_all[lo:hi], mag_all[lo:hi]))
+            outs = dispatch(*self._pad(mat_nd_all[lo:hi], mag_all[lo:hi]))
             self.timers.solver_time += time.perf_counter() - t0
             if pending is not None:
                 harvest(*pending)
-            pending = (ci, lo, hi - lo, ll, ok)
+            pending = (ci, lo, hi - lo, outs)
         if pending is not None:
             harvest(*pending)
         if sample_idx is not None:

@@ -9,14 +9,18 @@ fused into the solver: on the simulation grid directly (optionally with
 the short-tau_n samples on a finer ladder), off it (log-spaced times)
 through slot tables of dense-output weights; curves that cannot be fused
 take the reference's interpolation of a recorded PL trace.  A run
-checkpoints after every chunk and resumes from its checkpoint.  More than
-one device and ``device.profile_dir`` raise NotImplementedError naming
-their ROADMAP items.
+checkpoints after every chunk and resumes from its checkpoint.  It runs
+on every visible device (``device.n_devices`` caps them) and in every
+process of a torchrun group (parallel/distributed.py); with
+``device.profile_dir`` it writes a torch.profiler trace of ``simulate``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import logging
+import os
 import time
 from typing import Optional
 
@@ -26,7 +30,9 @@ import torch
 from . import physics
 from .config import InferenceConfig
 from .models.driver import SimParams
+from .parallel import distributed as dist
 from .parallel.checkpoint import CheckpointManager, CheckpointState
+from .parallel.mesh import make_mesh, synchronize
 from .parallel.runner import Runner
 from .utils import io as bio
 from .utils import sampling, validate
@@ -240,17 +246,6 @@ def phase_route(method: str, phases, T: int) -> str:
             + (", throughput chord profile" if chord else ""))
 
 
-def _check_supported(cfg: InferenceConfig):
-    """Raise on the branches of the JAX pipeline this port does not carry
-    yet, naming the ROADMAP item of each."""
-    if cfg.device.n_devices not in (None, 1):
-        raise NotImplementedError("more than one device is not ported yet: "
-                                  "ROADMAP A15")
-    if cfg.device.profile_dir:
-        raise NotImplementedError("device.profile_dir is not ported yet: "
-                                  "ROADMAP A17")
-
-
 def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
              logger=None, ckpt: Optional[CheckpointManager] = None, start=(0, 0)):
     """Evaluate likelihoods for all curves/experiments into P (in place).
@@ -359,20 +354,61 @@ def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
     return conv_all
 
 
+def _launch_counts():
+    """Launches of each kernel so far in this process (the wrappers'
+    counters)."""
+    from .ops import horizon_kernel, newton_kernel
+    return dict(horizon_kernel.launches, newton_step=newton_kernel.launches)
+
+
+@contextlib.contextmanager
+def profile_trace(profile_dir: str, mesh, logger=None):
+    """A torch.profiler trace of the block, marked ``simulate``: CPU
+    activities, and CUDA ones on the card, written as a Chrome trace to
+    ``<profile_dir>/trace_rank<r>.json`` (r the process index).  On the
+    card a trace that holds no kernel event raises and nothing is written:
+    it would mean the device tracing (CUPTI) saw nothing.  A process that
+    has traced the card launches kernels more slowly afterwards, so trace
+    a run of its own."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    on_card = mesh[0].type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        with record_function("simulate"):
+            yield
+            synchronize(mesh)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_rank{dist.process_index()}.json")
+    part = path + ".part"
+    prof.export_chrome_trace(part)
+    if on_card:
+        with open(part) as f:
+            events = json.load(f).get("traceEvents", [])
+        if not any(e.get("cat") == "kernel" for e in events):
+            os.remove(part)
+            raise RuntimeError("profile_dir: the trace of simulate holds no CUDA "
+                               "kernel event; the profiler did not trace the card")
+    os.replace(part, path)
+    if logger:
+        logger.info("torch.profiler trace written to %s", path)
+
+
 def bayes(cfg: InferenceConfig, logger: Optional[logging.Logger] = None,
           device="cuda"):
     """Top-level driver (reference: bayeslib.bayes, bayeslib.py:207-252).
 
-    Runs on ``device`` (``cuda`` unless the caller passes ``cpu``).
-    Returns (P, X, info): per-experiment log-likelihoods (num_exp, n), the
-    sample matrix in user units (n, 13), and run diagnostics.
+    Runs on the visible devices of type ``device`` (``cuda`` unless the
+    caller passes ``cpu``; ``validate.connect_to_devices``), in every
+    process of the torchrun group when the environment names one: every
+    process draws the same samples and ends with the merged P; only the
+    primary reads and writes checkpoints and exports.  Returns (P, X,
+    info): per-experiment log-likelihoods (num_exp, n), the sample matrix
+    in user units (n, 13), and run diagnostics.
     """
     t_start = time.perf_counter()
-    _check_supported(cfg)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("bayes: CUDA requested but no CUDA device is "
-                           "available (pass device='cpu' to run on the CPU)")
+    launches0 = _launch_counts()
+    dist.maybe_initialize_from_env()
+    primary = dist.is_primary()
     rng = np.random.default_rng(cfg.sim_flags.seed)
 
     init_params = bio.get_initpoints(cfg.paths.init_file, cfg.ic_flags.as_dict())
@@ -388,46 +424,79 @@ def bayes(cfg: InferenceConfig, logger: Optional[logging.Logger] = None,
     validate.validate_params(physics.NUM_PARAMS, physics.UNIT_CONVERSIONS,
                              cfg.params.do_log, cfg.params.min_x, cfg.params.max_x)
     validate.validate_solver(cfg.grid.method, cfg.grid.predictor)
+    mesh = make_mesh(validate.connect_to_devices(cfg.device, device))
 
     min_x, max_x = cfg.params.bounds_converted()
     ckpt = None
     start = (0, 0)
     resumed = False
-    if cfg.checkpoint and cfg.paths.out_dirs:
+    ckpt_chunk = None
+    if cfg.checkpoint and cfg.paths.out_dirs and primary:
         ckpt = CheckpointManager(cfg.paths.out_dirs[0])
         if cfg.resume:
             loaded = ckpt.load()
             if loaded is not None:
                 state, P, X, _ = loaded
                 start = (state.curve_index, state.chunk_index)
+                ckpt_chunk = state.chunk
                 resumed = True
-                if logger:
-                    logger.info("Resuming at curve %d chunk %d", *start)
     if not resumed:
         _, P, X = sampling.make_grid(
             num_exp, min_x, max_x, cfg.params.do_log, cfg.sim_flags.as_dict(),
             rng=np.random.RandomState(cfg.sim_flags.seed))
+    if cfg.checkpoint and cfg.paths.out_dirs and cfg.resume:
+        # Only the primary reads the checkpoint; every process must resume
+        # at its point with its P, or the per-chunk gathers pair different
+        # chunks.  One process: the identity.
+        start_a, P, X, resumed, ckpt_chunk = dist.broadcast_from_primary(
+            (np.asarray(start), P, X, resumed, ckpt_chunk))
+        start = (int(start_a[0]), int(start_a[1]))
+    if resumed and logger:
+        logger.info("Resuming at curve %d chunk %d", *start)
     if logger:
         logger.info("Initialized %d random samples", len(X))
 
     if logger:
         logger.info("Solver method %s: %s", cfg.grid.method,
                     SOLVER_ROUTES[cfg.grid.method])
-    runner = Runner(chunk=cfg.device.chunk_per_device, device=device)
+    runner = Runner(chunk=cfg.device.chunk_per_device, mesh=mesh)
+    if resumed and ckpt_chunk != runner.chunk:
+        # The checkpoint's chunk index counts chunks of the global chunk
+        # that wrote it; under another one it names other samples.
+        raise ValueError(
+            f"resume: the checkpoint was written at a global chunk of "
+            f"{ckpt_chunk} samples, this run's is {runner.chunk} (chunk_per_device "
+            f"{runner.chunk_per_device} x {runner.n_devices} devices over every "
+            f"process); resume with a layout whose product is {ckpt_chunk}")
+    if logger:
+        logger.info("Process %d of %d: devices %s; %d devices in all, chunk %d",
+                    dist.process_index(), dist.process_count(),
+                    ", ".join(map(str, mesh)), runner.n_devices, runner.chunk)
+    if runner.shared_cards and logger:
+        logger.warning("Process %d shares card(s) %s with another process: each "
+                       "process uses every card it sees; for one process per GPU "
+                       "set CUDA_VISIBLE_DEVICES per process", dist.process_index(),
+                       ", ".join(runner.shared_cards))
     if ckpt is not None and not resumed:
         ckpt.init(X, num_exp, len(init_params), runner.chunk)
 
-    simulate(cfg, e_data, init_params, X, P, runner, logger=logger, ckpt=ckpt,
-             start=start)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    traced = (profile_trace(cfg.device.profile_dir, mesh, logger)
+              if cfg.device.profile_dir else contextlib.nullcontext())
+    with traced:
+        simulate(cfg, e_data, init_params, X, P, runner, logger=logger, ckpt=ckpt,
+                 start=start)
+    synchronize(mesh)
 
     X_user = X / physics.UNIT_CONVERSIONS
-    for i, out_dir in enumerate(cfg.paths.out_dirs):
-        bio.export(out_dir, P[i], X_user, logger=logger)
+    if primary:
+        for i, out_dir in enumerate(cfg.paths.out_dirs):
+            bio.export(out_dir, P[i], X_user, logger=logger)
 
+    launches = {k: v - launches0.get(k, 0) for k, v in _launch_counts().items()}
     info = dict(runtime=time.perf_counter() - t_start, **runner.timers.as_dict(),
-                num_samples=len(X), num_devices=1, device=str(device))
+                num_samples=len(X), num_devices=runner.n_devices,
+                device=",".join(map(str, mesh)),
+                launches={k: v for k, v in launches.items() if v})
     if logger:
         logger.info("Total tEvol time: %.2fs; err_sq: %.2fs; misc: %.2fs",
                     runner.timers.solver_time, runner.timers.err_sq_time,

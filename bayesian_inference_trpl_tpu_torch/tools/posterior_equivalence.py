@@ -36,12 +36,16 @@ import torch
 
 
 def run_path(cfg, e_data, init_params, X, device="cuda"):
-    """Evaluate P (num_exp, n) for one solver configuration on ``device``;
-    returns (P, wall seconds)."""
+    """Evaluate P (num_exp, n) for one solver configuration on the
+    devices of type ``device`` that ``cfg.device`` names; returns (P, wall
+    seconds)."""
+    from ..parallel.mesh import make_mesh
     from ..parallel.runner import Runner
     from ..pipeline import simulate
+    from ..utils.validate import connect_to_devices
 
-    runner = Runner(chunk=cfg.device.chunk_per_device, device=device)
+    runner = Runner(chunk=cfg.device.chunk_per_device,
+                    mesh=make_mesh(connect_to_devices(cfg.device, device)))
     P = np.zeros((len(e_data), len(X)))
     t0 = time.perf_counter()
     simulate(cfg, e_data, init_params, X, P, runner)
@@ -104,7 +108,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..config import load_config
-    from ..pipeline import _check_supported
     from ..utils import io as bio
     from ..utils import sampling
 
@@ -122,7 +125,6 @@ def main(argv=None):
                                 else dict(seed=args.seed)))
     cfg = dataclasses.replace(cfg, sim_flags=sf, checkpoint=False,
                               resume=False)
-    _check_supported(cfg)
 
     rng = np.random.default_rng(cfg.sim_flags.seed)
     init_params = bio.get_initpoints(cfg.paths.init_file,

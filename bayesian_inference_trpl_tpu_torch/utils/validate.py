@@ -3,6 +3,7 @@ of the JAX package's checks, with the solver names the port supports."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def validate_ic(ics, L: int):
@@ -55,3 +56,31 @@ def validate_solver(method: str, predictor: str):
     if predictor not in PREDICTORS:
         raise ValueError(f"unknown Newton predictor {predictor!r}; "
                          f"choose one of {PREDICTORS}")
+
+
+def connect_to_devices(device_cfg, device="cuda"):
+    """This process's devices; replaces ``connect_to_gpu`` (reference:
+    bayes_validate.py:45-55) as the JAX package's ``connect_to_devices``
+    does.  ``device="cuda"``: the first ``device_cfg.n_devices`` visible
+    CUDA devices, all of them when it is None; asking for more than are
+    visible raises.  A CUDA device with an index is that device alone.
+    ``device="cpu"``: the CPU ``n_devices`` times (default once), a
+    virtual mesh whose devices share the host."""
+    device = torch.device(device)
+    n = device_cfg.n_devices
+    if device.type == "cpu":
+        return [device] * (n or 1)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}: cuda or cpu")
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible == 0:
+        raise RuntimeError("CUDA requested but no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+    if device.index is not None:
+        if n not in (None, 1):
+            raise ValueError(f"n_devices = {n} with the single device {device}")
+        return [device]
+    n = visible if n is None else int(n)
+    if not 1 <= n <= visible:
+        raise RuntimeError(f"requested {n} devices, only {visible} present")
+    return [torch.device("cuda", i) for i in range(n)]

@@ -107,6 +107,22 @@ Phases, each printed on its own line with its seconds:
               block, resident blocks and samples per SM
               (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers,
               local memory and waves per launch at chunk 1024.
+16. devices_split -- tools/dryrun_multichip on the card: a mesh that names
+              cuda:0 twice (512 samples per entry) against cuda:0 alone
+              (1,024) at power_scan's full ladder, 2,048 samples on-grid and
+              off-grid, 1,024 on the interpolation route: each chunk launched
+              once per entry, likelihoods and flags bitwise; with more cards
+              visible also the real mesh against one card.
+    main_multiprocess -- ``python -m torch.distributed.run --nproc-per-node 2
+              -m bayesian_inference_trpl_tpu_torch.run`` on main_resume's
+              inputs, CUDA_VISIBLE_DEVICES=0 for both processes (the gather
+              over gloo): both ranks log num_devices 2, the shared-card
+              warning and half the launches; rank 0 alone exports, bitwise main_resume's uninterrupted run.
+    main_profile -- main's inputs at 4,096 samples with [device]
+              profile_dir: the torch.profiler trace read back, the device
+              idle share over simulate's window and over the chunk loop, the
+              longest gaps between kernels.  It runs after phase 14: a
+              process that traced the card launches slower afterwards.
 
 Phases 12 and 14 take ~0.6 s per 80,000-step exact launch and main_interp
 its record launch per chunk-curve; when the projected total passes
@@ -248,6 +264,19 @@ E_SCALE = 1e-4
 # (curve 1, 2 of its 4 chunks done).
 RESUME_SAMPLES = 4096
 RESUME_STOP = (1, 2)
+# devices_split: samples on-grid and off-grid and on the interpolation route,
+# and the global chunk (512 per entry of the two-entry mesh).
+SPLIT_SAMPLES = 2048
+SPLIT_INTERP_SAMPLES = 1024
+SPLIT_CHUNK = 1024
+# main_multiprocess: torchrun's time limit.  main_profile: samples, and the
+# seconds its run takes (10.6-10.9 s on an H100 80GB HBM3), which the
+# exact-mode projection reserves: it runs last, because a process that has
+# traced with CUDA activities launches slower afterwards (the host-bound
+# phases read 15-40% slower when the trace ran before them).
+MULTIPROCESS_TIMEOUT_S = 300
+PROFILE_SAMPLES = 4096
+PROFILE_RESERVE_S = 12.0
 # main_adaptive: the tau_n threshold [ns]; the bucket's ladder is the
 # pipeline's (adaptive_fine_steps 512, adaptive_max_stride 32 by default).
 ADAPTIVE_TAU = 50.0
@@ -537,12 +566,14 @@ def bound_ms(r, L, peak):
 
 
 def write_main_inputs(tmp, num_points, seed, offgrid=False, method="fused_horizon_chord",
-                      exact=False, grid_extra=None):
+                      exact=False, grid_extra=None, profile_dir=None):
     """Excitations, observations (on the grid, or at the off-grid times)
     and a TOML of the power_scan configuration with the solver ``method``,
     in ``tmp``; ``exact`` leaves out the ladder (no fast_* keys: exact
     fixed-dt mode) and takes the geometric predictor; ``grid_extra`` adds
-    or replaces [grid] keys."""
+    or replaces [grid] keys; ``profile_dir`` sets [device] profile_dir.
+    n_devices = 1 (per process): a machine with more cards runs the same
+    paths."""
     g = dict(POWER_SCAN)
     extra = dict(grid_extra or {})
     for k in list(extra):
@@ -601,7 +632,9 @@ seed = {seed}
 
 [device]
 chunk_per_device = 1024
+n_devices = 1
 dtype = "float32"
+{f'profile_dir = "{profile_dir}"' if profile_dir else ""}
 
 [paths]
 init_file = "{exc}"
@@ -656,8 +689,11 @@ def main():
     compare_modes(hk, "", "fused_horizon_chord", args.seed, err64, plain32, timing)
     paths.run("", "fused_horizon_chord", n_main, {"stride_1": 1, "stride_s": rungs})
     # main's inputs stopped and resumed; main's inputs with adaptive routing
-    resume_phase(paths, args.seed)
+    files_full = resume_phase(paths, args.seed)
     adaptive_phase(paths, n_main, args.seed)
+    # more than one device and more than one process
+    devices_split(paths)
+    multiprocess_phase(args.seed, files_full)
     compare_modes(hk, "offgrid", "fused_horizon_chord", args.seed, err64, plain32, timing)
     paths.run("offgrid", "fused_horizon_chord", n_main, {"offgrid": rungs + 1})
     # 6-7. full Newton (fused_horizon), on-grid and off-grid
@@ -696,6 +732,8 @@ def main():
     for kind in ("", "offgrid"):
         posterior_phase(hk, kind, sizes["posterior" + ("_" + kind if kind else "")],
                         args.seed)
+    # the trace, last (see PROFILE_RESERVE_S)
+    profile_phase(paths, args.seed, card_line)
     # 15. how each entry sits on the card
     t0 = time.perf_counter()
     layouts = {m: entry_layout(hk, nk, m, timing[m], ptx) for m in timing}
@@ -884,15 +922,15 @@ def exact_sizes(elapsed_s, launch_s, record_s):
     """Samples of main_exact, of the two posterior runs and of main_interp:
     EXACT_SAMPLES and INTERP_SAMPLES, cut in EXACT_CUTS's order while the
     projected script time (each exact-mode launch ``launch_s``, each record
-    launch ``record_s``, each run RUN_OVERHEAD_S, the gate phase alike)
-    passes BUDGET_S."""
+    launch ``record_s``, each run RUN_OVERHEAD_S, the gate phase alike, and
+    main_profile's PROFILE_RESERVE_S) passes BUDGET_S."""
     sizes = {"main_exact": EXACT_SAMPLES, "posterior": EXACT_SAMPLES,
              "posterior_offgrid": EXACT_SAMPLES, "main_interp": INTERP_SAMPLES}
 
     def projected():
         secs = sum(3 * -(-n // 1024) * (record_s if name == "main_interp" else launch_s)
                    for name, n in sizes.items())
-        return elapsed_s + secs + (len(sizes) + 1) * RUN_OVERHEAD_S
+        return elapsed_s + secs + (len(sizes) + 1) * RUN_OVERHEAD_S + PROFILE_RESERVE_S
 
     for name, n in EXACT_CUTS:
         if projected() <= BUDGET_S:
@@ -1237,7 +1275,8 @@ def resume_phase(paths, seed):
     """main_resume: the CLI on main's inputs stopped by a checkpoint write
     that raises after RESUME_STOP, then run again with --resume; P and the
     exported files bitwise those of an uninterrupted run, and the resumed
-    run launches only the chunks left."""
+    run launches only the chunks left.  Returns the uninterrupted run's
+    exported files (name -> bytes)."""
     from bayesian_inference_trpl_tpu_torch.parallel.checkpoint import CheckpointManager
 
     class Stop(Exception):
@@ -1290,6 +1329,7 @@ def resume_phase(paths, seed):
           f"checkpoint of curve {RESUME_STOP[0]} chunk {RESUME_STOP[1]}, resumed with "
           f"--resume: {left} chunk-curves launched, P and {len(f_full)} exported files "
           f"bitwise equal, finite share {float(np.isfinite(P_res).mean()):.4f}")
+    return f_full
 
 
 def adaptive_phase(paths, num_points, seed):
@@ -1346,6 +1386,173 @@ def adaptive_phase(paths, num_points, seed):
     phase("main_adaptive_bucket", t0, f"{int(fine.sum())} bucket samples alone on the "
           f"{bucket_ladder} ladder ({rungs_f} rungs) in {wall:.2f} s: P bitwise the "
           f"routed run's; bulk bitwise main's")
+
+
+def devices_split(paths):
+    """devices_split: tools/dryrun_multichip on the card, a mesh that names
+    cuda:0 twice against cuda:0 once at the same global chunk, on every
+    route at power_scan's full ladder; launches counted (each chunk once
+    per mesh entry), X's likelihoods and flags bitwise.  With more than
+    one card visible, also the real mesh against one card."""
+    from bayesian_inference_trpl_tpu_torch.config import DeviceConfig
+    from bayesian_inference_trpl_tpu_torch.parallel.mesh import make_mesh
+    from bayesian_inference_trpl_tpu_torch.tools import dryrun_multichip as dry
+    from bayesian_inference_trpl_tpu_torch.utils.validate import connect_to_devices
+    t0 = time.perf_counter()
+    prob = dry.problem(full=True, num=SPLIT_SAMPLES, interp_num=SPLIT_INTERP_SAMPLES)
+    rungs = len(prob.sim.fast_phases) - 1
+    per_chunk = {"ongrid": {"stride_1": 1, "stride_s": rungs},
+                 "offgrid": {"offgrid": rungs + 1}, "interp": {"stride_1_record": 1}}
+    for route in dry.ROUTES:
+        n = prob.interp_num if route == "interp" else len(prob.X)
+        res = []
+        for mesh, cpd in ((["cuda:0"] * 2, SPLIT_CHUNK // 2), (["cuda:0"], SPLIT_CHUNK)):
+            paths.zero()
+            res.append(dry.run_route(route, make_mesh(mesh), cpd, prob))
+            got = {k: v for k, v in paths.launches().items() if v}
+            want = {k: v * len(mesh) * -(-n // SPLIT_CHUNK) for k, v in per_chunk[route].items()}
+            if got != want:
+                raise AssertionError(f"devices_split {route} on {mesh}: launched {got}, "
+                                     f"expected {want}")
+            print(f"  devices_split {route} on {mesh} at {cpd} per entry: "
+                  f"{res[-1][3]:.3f} s, launches {got}", flush=True)
+        print("  devices_split " + dry.check_route(route, res[0], res[1],
+                                                   -(-n // SPLIT_CHUNK))
+              + f"; 2-entry mesh / one entry wall {res[0][3] / res[1][3]:.2f}x", flush=True)
+    count = torch.cuda.device_count()
+    if count > 1:
+        prob = dry.problem(full=True, num=2 * 1024 * count, interp_num=0)
+        real = dry.run_route("ongrid", make_mesh(connect_to_devices(DeviceConfig())),
+                             1024, prob)
+        one = dry.run_route("ongrid", make_mesh(["cuda:0"]), 1024 * count, prob)
+        print("  devices_split " + dry.check_route("ongrid", real, one, 2)
+              + f"; {count} cards {real[3]:.3f} s against one card {one[3]:.3f} s")
+    else:
+        print("  devices_split: one card visible; the mesh of real cards was not run")
+    phase("devices_split", t0, f"[cuda:0, cuda:0] against [cuda:0] at chunk {SPLIT_CHUNK}: "
+          f"on-grid and off-grid {SPLIT_SAMPLES} samples, interpolation "
+          f"{SPLIT_INTERP_SAMPLES}, bitwise")
+
+
+def multiprocess_phase(seed, files_full):
+    """main_multiprocess: torchrun with two processes on one card
+    (CUDA_VISIBLE_DEVICES=0 for both, the gather over gloo) running the
+    CLI on main_resume's inputs: both ranks log num_devices 2, warn that
+    they share the card, and launch half of the chunk-curves' kernels
+    each; only rank 0 exports, and its files are bitwise main_resume's
+    uninterrupted run's."""
+    import socket
+    t0 = time.perf_counter()
+    rungs = len(ladder_schedule(False)[1]) - 1
+    per_rank = 3 * -(-RESUME_SAMPLES // 2048)             # chunk-curves, chunk 2 x 1024
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
+        cfg_path = write_main_inputs(tmp, RESUME_SAMPLES, seed)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+               "--master-port", str(port), "-m", "bayesian_inference_trpl_tpu_torch.run",
+               cfg_path, "--log-dir", os.path.join(tmp, "Logs")]
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+        t1 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                             capture_output=True, text=True, timeout=MULTIPROCESS_TIMEOUT_S)
+        wall = time.perf_counter() - t1
+        log = out.stdout + out.stderr
+        if out.returncode != 0:
+            raise AssertionError(f"main_multiprocess: torchrun exited {out.returncode}:\n"
+                                 f"{log[-4000:]}")
+        d = os.path.join(tmp, "out", "smoke")
+        files = {f: open(os.path.join(d, f), "rb").read()
+                 for f in sorted(os.listdir(d)) if "_BAYRAN_" in f}
+        n_logs = len(os.listdir(os.path.join(tmp, "Logs")))
+    done = [ln for ln in log.splitlines() if "INFO: Done: " in ln]
+    infos = {("[rank 1]" in ln): json.loads(ln.split("INFO: Done: ", 1)[1]) for ln in done}
+    exports = [ln for ln in log.splitlines() if "Exported BAYRAN files" in ln]
+    want = {"stride_1": per_rank, "stride_s": per_rank * rungs}
+    for rank, info in sorted(infos.items()):
+        print(f"  main_multiprocess rank {int(rank)}: num_devices {info['num_devices']}, "
+              f"devices {info['device']}, launches {info['launches']}, solver_time "
+              f"{info['solver_time']:.2f} s, runtime {info['runtime']:.2f} s")
+        if info["num_devices"] != 2 or info["launches"] != want:
+            raise AssertionError(f"main_multiprocess rank {int(rank)}: {info}, expected "
+                                 f"num_devices 2 and launches {want}")
+    shared = [ln for ln in log.splitlines() if "shares card(s)" in ln]
+    if len(shared) != 2:
+        raise AssertionError(f"main_multiprocess: {len(shared)} ranks warned of the "
+                             f"shared card, expected 2:\n{log[-4000:]}")
+    if len(done) != 2 or len(infos) != 2:
+        raise AssertionError(f"main_multiprocess: {len(done)} ranks reported:\n{log[-4000:]}")
+    if len(exports) != 1 or "[rank 1]" in exports[0] or n_logs != 1:
+        raise AssertionError(f"main_multiprocess: exports logged {exports}, {n_logs} log "
+                             f"files; only rank 0 exports and writes the run log")
+    if files != files_full:
+        raise AssertionError("main_multiprocess: the exported files differ from "
+                             "main_resume's uninterrupted run's")
+    phase("main_multiprocess", t0, f"torchrun 2 processes on one card, {RESUME_SAMPLES} "
+          f"samples x 3 curves: {wall:.2f} s wall, {3 * RESUME_SAMPLES / wall * 60:.0f} "
+          f"sims/min; {len(files)} files bitwise main_resume's, exported by rank 0 alone")
+
+
+def profile_phase(paths, seed, card_line):
+    """main_profile: main's inputs at PROFILE_SAMPLES samples with [device]
+    profile_dir; the trace read back: the device idle share over
+    simulate's window and over the chunk loop (first kernel to simulate's
+    end), and the longest gaps between kernels."""
+    rungs = len(ladder_schedule(False)[1]) - 1
+    with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tdir:
+        paths.run("", "fused_horizon_chord", PROFILE_SAMPLES, {"stride_1": 1, "stride_s": rungs},
+                  name="main_profile", keep_counts=False, profile_dir=tdir)
+        t0 = time.perf_counter()
+        files = os.listdir(tdir)
+        if files != ["trace_rank0.json"]:
+            raise AssertionError(f"main_profile: trace files {files}")
+        with open(os.path.join(tdir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(tdir, files[0]))
+    rep = trace_idle(events)
+    print(f"  main_profile: trace {size / 1e6:.1f} MB, {rep['kernels']} kernel events "
+          f"({rep['by_name']}); simulate window {rep['window_ms']:.1f} ms, kernels busy "
+          f"{rep['busy_ms']:.1f} ms: device idle share {rep['idle']:.4f}; chunk loop (first "
+          f"kernel to simulate's end) {rep['loop_ms']:.1f} ms: idle share "
+          f"{rep['loop_idle']:.4f}; before the first kernel {rep['lead_ms']:.1f} ms; longest "
+          f"gaps between kernels {rep['gaps_ms']} ms; {card_line}")
+    phase("main_profile_trace", t0, "torch.profiler trace of simulate read back")
+
+
+def trace_idle(events):
+    """Device idle share from a Chrome trace: 1 - (union of kernel
+    intervals / window) over the ``simulate`` annotation, and over the
+    chunk loop from the first kernel to its end."""
+    sim = [e for e in events if e.get("name") == "simulate" and e.get("cat") == "user_annotation"]
+    if len(sim) != 1:
+        raise AssertionError(f"main_profile: {len(sim)} simulate annotations")
+    lo, hi = sim[0]["ts"], sim[0]["ts"] + sim[0]["dur"]
+    kern = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["name"])
+                  for e in events if e.get("cat") == "kernel")
+    kern = [k for k in kern if k[1] > k[0]]
+    if not kern:
+        raise AssertionError("main_profile: no kernel inside simulate's window")
+    busy, gaps, end = [], [], None
+    for a, b, _ in kern:
+        if end is None or a > end:
+            if end is not None:
+                gaps.append(a - end)
+            busy.append([a, b])
+        else:
+            busy[-1][1] = max(busy[-1][1], b)
+        end = busy[-1][1]
+    busy_us = sum(b - a for a, b in busy)
+    by_name = {}
+    for a, b, name in kern:
+        short = re.sub(r"^void |\(anonymous namespace\)::", "", name).split("<")[0][-40:]
+        by_name[short] = by_name.get(short, 0) + 1
+    first = kern[0][0]
+    return dict(kernels=len(kern), by_name=by_name, window_ms=(hi - lo) / 1e3,
+                busy_ms=busy_us / 1e3, idle=1 - busy_us / (hi - lo),
+                loop_ms=(hi - first) / 1e3, loop_idle=1 - busy_us / (hi - first),
+                lead_ms=(first - lo) / 1e3,
+                gaps_ms=[round(g / 1e3, 2) for g in sorted(gaps, reverse=True)[:5]])
 
 
 def gate_phase(hk):
@@ -1600,7 +1807,7 @@ class MainPaths:
         return time.perf_counter() - t0, self.launches()
 
     def run(self, kind, method, num_points, per_chunk_curve, exact=False,
-            grid_extra=None, name=None, expected=None, keep_counts=True):
+            grid_extra=None, name=None, expected=None, keep_counts=True, profile_dir=None):
         """Returns the run's wall seconds; its (P, X) go to
         ``results[name]``.  ``kind``: "" on-grid, "offgrid" or "interp" (the
         off-grid times with offgrid_fused = false: the interpolation
@@ -1608,7 +1815,8 @@ class MainPaths:
         are kept as ``<kernel>_exact``.  ``grid_extra``: [grid] keys added
         or replaced.  ``expected``: the run's launches per kernel, in place
         of ``per_chunk_curve`` times the chunk-curves.  ``keep_counts``: the
-        launches are the kernels line's for their kernels."""
+        launches are the kernels line's for their kernels.  ``profile_dir``:
+        [device] profile_dir."""
         name = name or "main" + {"fused_horizon_chord": "", "fused_horizon": "_full",
                                  "coupled_newton_pallas": "_newton_step"}[method] + (
                                      f"_{kind}" if kind else "") + ("_exact" if exact else "")
@@ -1617,7 +1825,7 @@ class MainPaths:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
             cfg_path = write_main_inputs(tmp, num_points, self.seed, bool(kind), method,
-                                         exact, grid_extra)
+                                         exact, grid_extra, profile_dir)
             print(f"  {name} path: method {method}; num_points reduced 131072 -> "
                   f"{num_points}; 3 curves x {POWER_SCAN['T']} steps; chunk 1024; float32"
                   + (f"; t = 0 plus {OFFGRID_POINTS} log-spaced times per curve"

@@ -498,3 +498,73 @@ def test_record_state_trace_that_does_not_fit_raises(cuda_device):
         solver.solve(mat, n0, p0, e0, cfg._replace(num_steps=400_000, pl_stride=10,
                                                    record_state_stride=10))
     assert hk.launches == before
+
+
+def _first_calls(device):
+    """One horizon-kernel launch's arguments (the fine phase of a masked
+    float64 ladder) and one per-step kernel call's, on ``device``."""
+    mat, n0, p0, e0, obs, cfg = _problem(device, torch.float64, B=6, T=36 + 16)
+    calls = []
+    solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 16)),
+                     kernel=lambda *a: calls.append(a) or hk.horizon_chord_plain(*a, group=1))
+    mat, n0, p0, e0, obs, cfg = _problem(device, torch.float64, B=6, T=4,
+                                         method="coupled_newton_pallas")
+    steps = []
+    orig = solver.newton_step
+    solver.newton_step = lambda *a, **kw: steps.append((a, kw)) or orig(*a, **kw)
+    try:
+        solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 4),))
+    finally:
+        solver.newton_step = orig
+    return calls[0], steps[0]
+
+
+def test_wrappers_launch_on_their_inputs_device(cuda_device, monkeypatch):
+    """The C entries launch on the current CUDA device, so each wrapper
+    makes its inputs' device current.  With two cards: inputs on cuda:1
+    while cuda:0 is current give bitwise what they give with cuda:1
+    current.  With one card: each wrapper entered its inputs' device."""
+    if torch.cuda.device_count() > 1:
+        target = torch.device("cuda", 1)
+        (h_args, (s_args, s_kw)) = _first_calls(target)
+        with torch.cuda.device(target):
+            ref_h, ref_s = hk.horizon_chord(*h_args), nk.newton_step(*s_args, **s_kw)
+        with torch.cuda.device(0):
+            out_h, out_s = hk.horizon_chord(*h_args), nk.newton_step(*s_args, **s_kw)
+        torch.cuda.synchronize(target)
+        for a, b in zip(out_h, ref_h):
+            assert a is None or torch.equal(a, b)
+        for a, b in zip(out_s, ref_s):
+            assert torch.equal(a, b)
+        return
+    target = torch.device("cuda", 0)
+    h_args, (s_args, s_kw) = _first_calls(target)
+    entered = []
+    orig = torch.cuda.device
+
+    class Recorded(orig):
+        def __init__(self, d):
+            entered.append(torch.device(d))
+            super().__init__(d)
+    monkeypatch.setattr(torch.cuda, "device", Recorded)
+    hk.horizon_chord(*h_args)
+    assert entered == [target]
+    nk.newton_step(*s_args, **s_kw)
+    assert entered == [target, target]
+
+
+@pytest.mark.parametrize("route", ["ongrid", "interp"])
+def test_runner_two_entry_mesh_on_one_card(cuda_device, route):
+    """A mesh that names the card twice against the card once, at the same
+    global chunk: the likelihoods bitwise equal, each chunk launched once
+    per mesh entry."""
+    from bayesian_inference_trpl_tpu_torch.parallel.mesh import make_mesh
+    from bayesian_inference_trpl_tpu_torch.tools import dryrun_multichip as dry
+    prob = dry.problem(T=48, num=64, interp_num=64)
+    mode = "stride_1" if route == "ongrid" else "stride_1_record"
+    res = []
+    for mesh, cpd in ((["cuda:0"] * 2, 16), (["cuda:0"], 32)):
+        before = hk.launches[mode]
+        res.append(dry.run_route(route, make_mesh(mesh), cpd, prob))
+        assert hk.launches[mode] - before == 2 * len(mesh)        # 2 chunks of 32
+    assert dry.check_route(route, res[0], res[1], 2)

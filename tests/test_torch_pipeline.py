@@ -82,13 +82,14 @@ def test_bayes_matches_jax(tmp_path, monkeypatch):
 def test_unported_branches_raise(tmp_path):
     """Branches the port does not carry yet raise NotImplementedError
     naming their ROADMAP item instead of falling back.  Resume (A8),
-    adaptive tau routing (A9) and the interpolation fallback (A12) are
-    ported: tests/test_torch_resume.py, test_torch_adaptive.py and
-    test_torch_interp_bayes.py."""
+    adaptive tau routing (A9), the interpolation fallback (A12) and more
+    than one device (A15) are ported: tests/test_torch_resume.py,
+    test_torch_adaptive.py, test_torch_interp_bayes.py and
+    test_torch_sharding.py."""
     obs, exc = _write_synthetic(tmp_path, num_curves=1)
     cases = [
-        (dict(device=dict(n_devices=2)), "A15"),
         (dict(grid=dict(method="gauss_seidel")), "A13"),
+        (dict(sim_flags=dict(random_sample=False)), "A13"),
     ]
     for change, item in cases:
         cfg = _config(tcfg, tmp_path, obs, exc, "X")
