@@ -11,6 +11,9 @@ as coupled_newton there).  Otherwise, and for every segmented call
 Python step loop runs coupled Newton step by step:
 models/newton.coupled_newton_step, or for ``method="coupled_newton_pallas"``
 one launch of the per-step Newton kernel per step (ops/newton_kernel.py).
+``method="gauss_seidel"`` (the default, as in the JAX package) is the
+reference's scheme, plain PyTorch in the same step loop:
+models/trpl.implicit_step, N then P by tridiagonal PCR and E explicit.
 
 The likelihood is fused into the time loop: the loop carries running sums
 of the log-residual and its square, and the sampled ``mag_offset`` enters
@@ -25,7 +28,7 @@ import torch
 
 from ..ops.newton_kernel import newton_step
 from .newton import coupled_newton_step
-from .trpl import BDF_TABLE, HISTORY, MatParams
+from .trpl import BDF_TABLE, HISTORY, MatParams, implicit_step
 
 
 class SolverConfig(NamedTuple):
@@ -38,7 +41,8 @@ class SolverConfig(NamedTuple):
     record_state_stride: Optional[int] = None
     record_iters: bool = False
     predictor: str = "previous"    # previous | linear | quadratic | geometric
-    method: str = "coupled_newton"  # coupled_newton | coupled_newton_pallas |
+    method: str = "gauss_seidel"   # gauss_seidel (reference scheme) |
+    #                                coupled_newton | coupled_newton_pallas |
     #                                fused_horizon | fused_horizon_chord
     chord_strict: bool = False     # chord acceptance profile; solve_multiphase
     #                                forces True (ops/horizon_kernel._chord_knobs)
@@ -120,12 +124,14 @@ def _bdf_coeffs(t: int, like: torch.Tensor):
 
 
 def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol):
-    """One coupled-Newton BDF step on the rolling histories (6, batch, L);
-    shared by ``solve``, the coarse phases of models/twophase.py and the
-    off-grid phases of models/offgrid.py.  ``coupled_newton_pallas`` steps
-    with the per-step Newton kernel (ops/newton_kernel.newton_step, the JAX
-    package's pallas_newton_step), every other method with
-    models/newton.coupled_newton_step.  (The JAX package also sends the
+    """One BDF step on the rolling histories (6, batch, L); shared by
+    ``solve``, the coarse phases of models/twophase.py and the off-grid
+    phases of models/offgrid.py.  ``gauss_seidel`` steps with
+    models/trpl.implicit_step, the only scheme that reads the iterate's E;
+    ``coupled_newton_pallas`` with the per-step Newton kernel
+    (ops/newton_kernel.newton_step, the JAX package's pallas_newton_step),
+    every other method with models/newton.coupled_newton_step, which
+    eliminates E.  (The JAX package also sends the
     fused-horizon methods' per-step dispatch to the Pallas step on the TPU;
     its solve() never reaches that branch, so it is not ported.)  Updates
     the histories in place and returns (N, P, E, iters, ok)."""
@@ -156,9 +162,16 @@ def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol
             Px = torch.where(Pm > 0, Pk * (Pk / torch.where(Pm > 0, Pm, 1.0)), Px)
         Nk = torch.where(Nx > 0, Nx, Nk)
         Pk = torch.where(Px > 0, Px, Pk)
-    step = newton_step if cfg.method == "coupled_newton_pallas" else coupled_newton_step
-    Nn, Pn, En, iters, ok = step(
-        Nk, Pk, bn, bp, be, mp, a0, tol, cfg.max_iters, step_tol=step_tol)
+    if cfg.method == "gauss_seidel":
+        Ek = eh[k]
+        if cfg.predictor in ("linear", "quadratic", "geometric"):
+            Ek = Ek + float(min(t, 1)) * (Ek - eh[(t - 1) % HISTORY])
+        Nn, Pn, En, iters, ok = implicit_step(
+            Nk, Pk, Ek, bn, bp, be, mp, a0, tol, cfg.max_iters, step_tol=step_tol)
+    else:
+        step = newton_step if cfg.method == "coupled_newton_pallas" else coupled_newton_step
+        Nn, Pn, En, iters, ok = step(
+            Nk, Pk, bn, bp, be, mp, a0, tol, cfg.max_iters, step_tol=step_tol)
     nh[kp] = Nn
     ph[kp] = Pn
     eh[kp] = En

@@ -1,8 +1,11 @@
 """Core numerics of the 1-D electron/hole drift-diffusion-decay TRPL model.
 
 Everything here operates on nondimensionalized, batched tensors of shape
-(batch, L) with the spatial axis last.  The BDF1->5 coefficient ramp and
-the explicit E update follow the reference kernel (pvSimPCR.py:93-306).
+(batch, L) with the spatial axis last.  The BDF1->5 coefficient ramp, the
+Gauss-Seidel N-then-P Newton linearization with surface-recombination
+boundary rows and the explicit E update follow the reference kernel
+(pvSimPCR.py:93-306); each expression keeps the operation order of the
+JAX package's models/trpl.py, so float64 results agree to rounding.
 
 State layout:
   N, P: (batch, L) carrier densities at cell centers [carriers/cell].
@@ -17,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.tridiag import shift_right
+from ..ops.tridiag import pcr_solve, residual_l1, shift_left, shift_right
 
 # BDF startup ramp: row t (0..3) is the order-(t+1) method used at step t;
 # row 4 is BDF5, used for all later steps (reference: pvSimPCR.py:241-250).
@@ -77,8 +80,12 @@ def _onehot(x: torch.Tensor, idx: int) -> torch.Tensor:
     return h
 
 
+def _zero_col(x: torch.Tensor, idx: int = 0) -> torch.Tensor:
+    return x * (1.0 - _onehot(x, idx))
+
+
 def _zero_col0(x: torch.Tensor) -> torch.Tensor:
-    return x * (1.0 - _onehot(x, 0))
+    return _zero_col(x, 0)
 
 
 def _add_col(x: torch.Tensor, idx: int, v: torch.Tensor) -> torch.Tensor:
@@ -102,3 +109,124 @@ def update_e(Nk, Pk, bE, mp: MatParams, a0):
     denom = lam * (dp * (Pk + Pm) + dn * (Nk + Nm)) / 2.0 + a0
     num = lam * (dp * (Pk - Pm) - dn * (Nk - Nm)) - bE
     return _zero_col0(num / denom)
+
+
+def assemble_n(Nk, Pk, Ek, bN, mp: MatParams, a0):
+    """Tridiagonal Newton system for N (reference: pvSimPCR.py:148-170).
+
+    Returns (ld, d, ud, rhs) with ld[..., 0] == ud[..., -1] == 0.
+    """
+    dn = _col(mp.dn)
+    L = Nk.shape[-1]
+    n0p0 = _col(mp.n0 * mp.p0)
+    Er = shift_left(Ek, 1)                      # Er[n] = E[n+1]
+    # Flux coupling coefficients from the edge field E[n].
+    ud = _zero_col(dn * (-Er / 2.0 - 1.0), L - 1)
+    ld = _zero_col(dn * (Ek / 2.0 - 1.0), 0)
+    # Source-term Jacobian dR/dN at the current iterate.
+    np_ = Nk * Pk - n0p0
+    tp = Nk * _col(mp.tau_p) + Pk * _col(mp.tau_n)
+    ds = (-_col(mp.rate) * Pk
+          - (Pk * tp - _col(mp.tau_p) * np_) / tp ** 2
+          - (_col(mp.cn) * Nk * Pk + _col(mp.cp) * Pk ** 2 + _col(mp.cn) * np_))
+    # Diagonal: a0 minus the two flux terms that exist for this row.
+    left = _zero_col(dn * (-Ek / 2.0 - 1.0), 0)      # row 0 has no left edge
+    right = _zero_col(dn * (Er / 2.0 - 1.0), L - 1)  # row L-1 has no right edge
+    d = a0 - left - right - ds
+    rhs = -recombination(Nk, Pk, mp) - ds * Nk - bN
+    # Surface recombination rows (reference: pvSimPCR.py:164-170).
+    s_num0 = _col(mp.sr0) * (Nk[..., 0] * Pk[..., 0] - n0p0[..., 0])[:, None]
+    s_numL = _col(mp.srL) * (Nk[..., -1] * Pk[..., -1] - n0p0[..., 0])[:, None]
+    denom0 = (Nk[..., 0] + Pk[..., 0])[:, None]
+    denomL = (Nk[..., -1] + Pk[..., -1])[:, None]
+    ds0 = -_col(mp.sr0) * (Pk[..., 0:1] ** 2 + n0p0) / denom0 ** 2
+    dsL = -_col(mp.srL) * (Pk[..., -1:] ** 2 + n0p0) / denomL ** 2
+    d = _add_col(d, 0, -ds0)
+    d = _add_col(d, L - 1, -dsL)
+    rhs = _add_col(rhs, 0, -(s_num0 / denom0 + ds0 * Nk[..., 0:1]))
+    rhs = _add_col(rhs, L - 1, -(s_numL / denomL + dsL * Nk[..., -1:]))
+    return ld, d, ud, rhs
+
+
+def assemble_p(Nk, Pk, Ek, bP, mp: MatParams, a0):
+    """Tridiagonal Newton system for P (reference: pvSimPCR.py:178-198)."""
+    dp = _col(mp.dp)
+    L = Nk.shape[-1]
+    n0p0 = _col(mp.n0 * mp.p0)
+    Er = shift_left(Ek, 1)
+    ud = _zero_col(dp * (Er / 2.0 - 1.0), L - 1)
+    ld = _zero_col(dp * (-Ek / 2.0 - 1.0), 0)
+    np_ = Nk * Pk - n0p0
+    tp = Nk * _col(mp.tau_p) + Pk * _col(mp.tau_n)
+    ds = (-_col(mp.rate) * Nk
+          - (Nk * tp - _col(mp.tau_n) * np_) / tp ** 2
+          - (_col(mp.cp) * Nk * Pk + _col(mp.cn) * Nk ** 2 + _col(mp.cp) * np_))
+    left = _zero_col(dp * (Ek / 2.0 - 1.0), 0)
+    right = _zero_col(dp * (-Er / 2.0 - 1.0), L - 1)
+    d = a0 - left - right - ds
+    rhs = -recombination(Nk, Pk, mp) - ds * Pk - bP
+    s_num0 = _col(mp.sr0) * (Nk[..., 0] * Pk[..., 0] - n0p0[..., 0])[:, None]
+    s_numL = _col(mp.srL) * (Nk[..., -1] * Pk[..., -1] - n0p0[..., 0])[:, None]
+    denom0 = (Nk[..., 0] + Pk[..., 0])[:, None]
+    denomL = (Nk[..., -1] + Pk[..., -1])[:, None]
+    ds0 = -_col(mp.sr0) * (Nk[..., 0:1] ** 2 + n0p0) / denom0 ** 2
+    dsL = -_col(mp.srL) * (Nk[..., -1:] ** 2 + n0p0) / denomL ** 2
+    d = _add_col(d, 0, -ds0)
+    d = _add_col(d, L - 1, -dsL)
+    rhs = _add_col(rhs, 0, -(s_num0 / denom0 + ds0 * Pk[..., 0:1]))
+    rhs = _add_col(rhs, L - 1, -(s_numL / denomL + dsL * Pk[..., -1:]))
+    return ld, d, ud, rhs
+
+
+def newton_iteration(Nk, Pk, Ek, bN, bP, bE, mp: MatParams, a0):
+    """One Gauss-Seidel Newton sweep: solve N, then P with the new N, then
+    update E explicitly.  Returns the new iterate and the *pre-solve*
+    relative residuals, the reference's convergence metric (norm2 is
+    evaluated on the current iterate before pcreduce; reference:
+    pvSimPCR.py:172-175, 200-202)."""
+    ld, d, ud, rhs = assemble_n(Nk, Pk, Ek, bN, mp, a0)
+    err_n = residual_l1(ld, d, ud, Nk, rhs)
+    Nk1 = pcr_solve(ld, d, ud, rhs)
+    ld, d, ud, rhs = assemble_p(Nk1, Pk, Ek, bP, mp, a0)
+    err_p = residual_l1(ld, d, ud, Pk, rhs)
+    Pk1 = pcr_solve(ld, d, ud, rhs)
+    Ek1 = update_e(Nk1, Pk1, bE, mp, a0)
+    return Nk1, Pk1, Ek1, err_n, err_p
+
+
+def implicit_step(Nk0, Pk0, Ek0, bN, bP, bE, mp: MatParams, a0, tol,
+                  max_iters: int, step_tol=0.0):
+    """Advance one BDF step by the Gauss-Seidel fixed-point loop, each
+    sample frozen on its own (the JAX package's implicit_step).
+
+    A sample is done once its pre-solve residuals both pass ``tol``, or
+    once its iterate has settled (max|dX| <= step_tol * max|X| for N and
+    P, with both residuals within STEP_TOL_RESIDUAL_GUARD x tol; step_tol
+    0 turns that off, the reference's semantics).  Every iteration sweeps
+    the whole batch; only the samples not yet done take the update.  The
+    loop ends at ``max_iters`` or when every sample is done: on the card
+    that exit test is one host read per iteration.
+
+    Returns (N, P, E, iters, converged), iters the (batch,) count of
+    updates applied.
+    """
+    batch = Nk0.shape[0]
+    dev = Nk0.device
+    Nk, Pk, Ek = Nk0, Pk0, Ek0
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    its = torch.zeros(batch, dtype=torch.int32, device=dev)
+    it = 0
+    while it < max_iters and not bool(done.all()):
+        Nk1, Pk1, Ek1, err_n, err_p = newton_iteration(Nk, Pk, Ek, bN, bP, bE, mp, a0)
+        ok_step = (((Nk1 - Nk).abs().amax(-1) <= step_tol * Nk1.abs().amax(-1))
+                   & ((Pk1 - Pk).abs().amax(-1) <= step_tol * Pk1.abs().amax(-1))
+                   & (err_n < tol * STEP_TOL_RESIDUAL_GUARD)
+                   & (err_p < tol * STEP_TOL_RESIDUAL_GUARD))
+        upd = (~done)[:, None]
+        Nk = torch.where(upd, Nk1, Nk)
+        Pk = torch.where(upd, Pk1, Pk)
+        Ek = torch.where(upd, Ek1, Ek)
+        its = its + upd[:, 0].to(torch.int32)
+        done = done | ((err_n < tol) & (err_p < tol)) | ok_step
+        it += 1
+    return Nk, Pk, Ek, its, done

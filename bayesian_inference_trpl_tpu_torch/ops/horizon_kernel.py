@@ -325,7 +325,8 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
         chord = _Chord(batch, group, n0.device, prm, tol)
     else:
         step_cfg = SolverConfig(num_steps=T, max_iters=prm.max_iters,
-                                predictor=_PREDICTOR[prm.pred_order])
+                                predictor=_PREDICTOR[prm.pred_order],
+                                method="coupled_newton")
 
     nh, ph, eh = init_history(n0, p0, e0)
     n0p0 = mp.n0 * mp.p0

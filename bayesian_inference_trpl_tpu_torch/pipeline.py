@@ -226,6 +226,8 @@ SOLVER_ROUTES = {
     "fused_horizon": "horizon kernel, full Newton, one launch per phase",
     "coupled_newton_pallas": "per-step Newton kernel, one launch per BDF step",
     "coupled_newton": "coupled-Newton step loop, no kernel",
+    "gauss_seidel": "Gauss-Seidel step loop (N then P by tridiagonal PCR, E "
+                    "explicit), no kernel",
 }
 # The same for the interpolation fallback's solve(record_pl=True).
 _RECORD_LAUNCH = "horizon kernel, full Newton recording PL, one launch over the whole horizon"

@@ -101,9 +101,8 @@ def main(argv=None):
     ap.add_argument("out", help="output result .npz")
     ap.add_argument("--backend", choices=["solver", "oracle"], default="solver")
     ap.add_argument("--method", default="coupled_newton",
-                    help="solver method (coupled_newton | coupled_newton_pallas | "
-                         "fused_horizon | fused_horizon_chord; gauss_seidel is "
-                         "not ported)")
+                    help="solver method (gauss_seidel | coupled_newton | "
+                         "coupled_newton_pallas | fused_horizon | fused_horizon_chord)")
     ap.add_argument("--dtype", default="float64",
                     choices=["float32", "float64"])
     ap.add_argument("--rtol", type=float, default=1e-8)

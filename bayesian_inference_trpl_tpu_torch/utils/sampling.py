@@ -1,10 +1,13 @@
-"""Host-side parameter-space sampler (numpy).
+"""Host-side parameter-space samplers (numpy).
 
 A copy of the JAX package's ``random_grid`` / ``apply_overrides`` /
 ``make_grid`` (reference: bayeslib.py:18-76): per-dimension sequential
 draws from one RNG stream, pinned dimensions (min == max), log10-uniform
-dimensions, and the equality overrides mu_n = mu_p, S_b = S_f, C_p = C_n.
-At the same seed the sample matrix is bitwise equal to the JAX package's.
+dimensions, and the equality overrides mu_n = mu_p, S_b = S_f, C_p = C_n;
+and of its legacy coarse-grid sampler (``index_grid`` / ``param_grid`` /
+``refine_grid``), which ``make_grid`` takes with ``random_sample = false``.
+At the same inputs the sample matrix is bitwise equal to the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -46,17 +49,67 @@ def apply_overrides(X: np.ndarray, sim_flags: dict) -> np.ndarray:
 
 def make_grid(num_exp: int, min_x, max_x, do_log, sim_flags: dict, rng=None):
     """Build the sampling grid and empty likelihood table
-    (reference: bayeslib.py:34-76).
+    (reference: bayeslib.py:34-76).  ``random_sample = false`` takes the
+    legacy coarse grid: ``num_points`` cells along every free dimension
+    and one along each pinned one, at the cell centres.
 
     Returns (N, P, X): sample indices, (num_exp, n) zero likelihoods, and
     the (n, 13) sample matrix.
     """
-    if not sim_flags.get("random_sample", True):
-        raise NotImplementedError(
-            "random_sample = false (the legacy coarse-grid sampler) is not "
-            "ported yet: ROADMAP A13")
-    n = int(sim_flags["num_points"])
-    X = random_grid(min_x, max_x, do_log, n, rng=rng)
+    if sim_flags.get("random_sample", True):
+        n = int(sim_flags["num_points"])
+        X = random_grid(min_x, max_x, do_log, n, rng=rng)
+    else:
+        refs = [np.array([sim_flags["num_points"] if min_x[i] != max_x[i] else 1
+                          for i in range(len(min_x))])]
+        N0 = refine_grid(np.array([0]), refs[0])
+        ind = index_grid(N0, refs)
+        X = param_grid(ind, refs, np.asarray(min_x, float),
+                       np.asarray(max_x, float), np.asarray(do_log))
+        n = len(X)
     X = apply_overrides(X, sim_flags)
     P = np.zeros((num_exp, n))
     return np.arange(n), P, X
+
+
+# --- Legacy coarse-grid sampler (reference: Legacy/legacy.py:11-37) ---------
+
+def index_grid(N, refs):
+    """Flat cell ids -> per-dimension grid coordinates.
+
+    ``refine_grid`` encodes a cell id as a mixed-radix number whose digits
+    are, from least significant, the per-dimension sub-indices of each
+    refinement level (latest level in the low digits, dimensions minor
+    within a level).  The coordinate of a cell along dimension m is the
+    level digits for m weighted by the resolution of all finer levels
+    along m.
+    """
+    N = np.asarray(N)
+    refs = np.asarray(refs, dtype=int)            # (K levels, M dims)
+    K, M = refs.shape
+    radices = refs[::-1].reshape(-1)              # innermost level first
+    place = np.concatenate(([1], np.cumprod(radices[:-1])))
+    digits = (N[:, None] // place[None, :]) % radices[None, :]
+    digits = digits.reshape(len(N), K, M)         # (n, level, dim)
+    # Weight of level k's digit along dim m = prod of finer levels' radix.
+    weight = np.concatenate(
+        [np.ones((1, M), dtype=int), np.cumprod(refs[::-1], axis=0)[:-1]])
+    return np.einsum("nkm,km->nm", digits, weight)
+
+
+def param_grid(ind, refs, min_x, max_x, do_log):
+    """Grid coordinates -> cell-centre parameter values; log-spaced
+    dimensions interpolate geometrically (a log dimension with a zero
+    lower bound collapses to 0, as the reference's nan_to_num did)."""
+    frac = (ind + 0.5) / np.prod(refs, axis=0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        x_log = np.nan_to_num(min_x * (max_x / min_x) ** frac)
+    x_lin = min_x + (max_x - min_x) * frac
+    return np.where(do_log, x_log, x_lin)
+
+
+def refine_grid(N, ref):
+    """Split each cell id into ``prod(ref)`` consecutive subcell ids: cell
+    n maps to n*siz .. n*siz+siz-1, ordered cell-major."""
+    siz = int(np.prod(ref))
+    return (np.asarray(N)[:, None] * siz + np.arange(siz)[None, :]).ravel()

@@ -1,5 +1,5 @@
 """Startup validation of inputs (reference: bayes_validate.py:10-55); a copy
-of the JAX package's checks, with the solver names the port supports."""
+of the JAX package's checks."""
 from __future__ import annotations
 
 import numpy as np
@@ -36,20 +36,13 @@ def validate_params(num_params: int, unit_conversions, do_log, min_x, max_x):
         raise ValueError("min params larger than max params")
 
 
-SOLVER_METHODS = ("coupled_newton", "coupled_newton_pallas", "fused_horizon",
-                  "fused_horizon_chord")
-# Methods of the JAX package that the port does not carry yet, with the
-# ROADMAP item that brings each.
-UNPORTED_METHODS = {"gauss_seidel": "A13"}
+SOLVER_METHODS = ("gauss_seidel", "coupled_newton", "coupled_newton_pallas",
+                  "fused_horizon", "fused_horizon_chord")
 PREDICTORS = ("previous", "linear", "quadratic", "geometric")
 
 
 def validate_solver(method: str, predictor: str):
     """Fail fast on solver knobs before any sampling or IO work."""
-    if method in UNPORTED_METHODS:
-        raise NotImplementedError(
-            f"solver method {method!r} is not ported yet: ROADMAP "
-            f"{UNPORTED_METHODS[method]}")
     if method not in SOLVER_METHODS:
         raise ValueError(f"unknown solver method {method!r}; "
                          f"choose one of {SOLVER_METHODS}")

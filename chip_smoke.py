@@ -46,8 +46,8 @@ Phases, each printed on its own line with its seconds:
               every phase of a coupled_newton_pallas run of the shortened
               ladder, float64 and float32 at 1024 samples; its time per
               launch by CUDA events.
-9. main_newton_step -- as 3 with method coupled_newton_pallas: one launch
-              of the per-step kernel per BDF step.
+9. main_newton_step -- as 3 with method coupled_newton_pallas at 1,024
+              samples: one launch of the per-step kernel per BDF step.
 10. compare_variants -- kernel vs plain (group=1), float64 (bitwise state,
               equal counts) and float32, for what the main paths do not
               launch: the previous, linear and geometric predictors, the
@@ -86,6 +86,19 @@ Phases, each printed on its own line with its seconds:
               JAX package's bounds (tests/test_corner_gate.py); at T0 also
               coupled_newton_pallas, held to the record launch.  Missing
               oracle files fail the script.
+    main_gauss_seidel -- the reference scheme (method gauss_seidel: plain
+              PyTorch, no kernel) through the CLI at the reference's
+              settings (float64, tol 1e-7, the previous-state predictor,
+              exact fixed-dt), one curve, the legacy grid (random_sample =
+              false, 2 points per free dimension: 1,024 samples), the
+              horizon cut to GS_T steps; no kernel launched, X bitwise the
+              host's make_grid.  The same TOML with fused_horizon (one
+              full-Newton launch) against it: posterior equivalence, finite
+              patterns and the relative P difference (GS_P_RTOL).  Prints
+              the wall per BDF step, the iterations per step, the converged
+              share (and what max_iters 32/64/128 would converge), and the
+              host share of an iteration (its device time from a CUDA-graph
+              replay) against the full-Newton launch.
 12. main_exact -- as 3 on a TOML with no ladder and the geometric
               predictor: exactly one stride-1 launch per chunk and curve.
     main_interp -- as 3 with main_offgrid's observations and
@@ -260,6 +273,33 @@ PVSIM_PL_RTOL = 1e-4
 # ambipolar corners' true E is 0 and their E rounding noise).
 CORNER_PALLAS_RTOL = 1e-10
 E_SCALE = 1e-4
+# main_gauss_seidel: the reference scheme (method gauss_seidel: plain
+# PyTorch, it reaches no kernel) at the reference's settings (float64, tol
+# 1e-7, the previous-state predictor; SURVEY.md:343, :359), exact fixed-dt,
+# one curve, the legacy grid at GS_LEGACY_POINTS per free dimension
+# (2**10 = 1,024 samples over MIN_X/MAX_X's 10 free dimensions: one chunk).
+# Each Gauss-Seidel iteration is ~650 PyTorch operations and one host read
+# (the loop's exit test): 7.3 ms on an H100 80GB HBM3 at 700 W, ~3 per step
+# after the first ~50 steps, so the horizon is cut from 80,000 steps to GS_T
+# at dt = 25 ps (16 ns), for a phase of <= 30 s.  GS_MAX_ITERS: the first
+# steps from the initial condition take up to 254 iterations on half of
+# these samples (max_iters 32 and 64 would converge ~36% and 50% of them;
+# the phase prints the shares), so the smallest power of two at which
+# >= 99% converge.  The same TOML with method fused_horizon (the full-Newton
+# stride-1 kernel, one launch) is the comparison: on the samples finite in
+# both, posterior equivalence at the tool's defaults, finite patterns
+# differing on at most GS_FINITE_DIFF of the samples, and the relative P
+# difference within GS_P_RTOL, the bound tests/test_torch_legacy_grid.py
+# derives from the JAX package (gauss_seidel against coupled_newton at these
+# settings, ten times its largest difference, rounded up to a power of ten).
+GS_T = 640
+GS_MAX_ITERS = 256
+GS_LEGACY_POINTS = 2
+GS_FINITE_DIFF = 0.01
+GS_P_RTOL = 1e-5
+# main_newton_step's samples (C9: 4,096 before main_gauss_seidel, whose
+# time they pay for); the same 2,142 launches per chunk-curve.
+NEWTON_STEP_SAMPLES = 1024
 # main_resume: samples, and the checkpoint after which the first run stops
 # (curve 1, 2 of its 4 chunks done).
 RESUME_SAMPLES = 4096
@@ -566,26 +606,32 @@ def bound_ms(r, L, peak):
 
 
 def write_main_inputs(tmp, num_points, seed, offgrid=False, method="fused_horizon_chord",
-                      exact=False, grid_extra=None, profile_dir=None):
+                      exact=False, grid_extra=None, profile_dir=None, num_curves=3,
+                      dtype="float32", legacy_points=None):
     """Excitations, observations (on the grid, or at the off-grid times)
     and a TOML of the power_scan configuration with the solver ``method``,
     in ``tmp``; ``exact`` leaves out the ladder (no fast_* keys: exact
     fixed-dt mode) and takes the geometric predictor; ``grid_extra`` adds
-    or replaces [grid] keys; ``profile_dir`` sets [device] profile_dir.
-    n_devices = 1 (per process): a machine with more cards runs the same
-    paths."""
+    or replaces [grid] keys (power_scan's T and time among them; a
+    step_tol of None leaves the key out); ``profile_dir`` sets [device]
+    profile_dir; ``num_curves`` excitation curves; ``dtype`` [device] dtype;
+    ``legacy_points`` samples the legacy grid (random_sample = false) at
+    that many points per free dimension in place of ``num_points`` random
+    ones.  n_devices = 1 (per process): a machine with more cards runs the
+    same paths."""
     g = dict(POWER_SCAN)
     extra = dict(grid_extra or {})
     for k in list(extra):
         if k in g:
             g[k] = extra.pop(k)
+    predictor = extra.pop("predictor", "geometric" if exact else "quadratic")
     ladder = "" if exact else f"""fast_fine_steps = {g['fast_fine_steps']}
 fast_coarse_stride = {g['fast_coarse_stride']}
 fast_max_stride = {g['fast_max_stride']}
 fast_steps_per_phase = {g['fast_steps_per_phase']}
 """
     ladder += "".join(f"{k} = {json.dumps(v)}\n" for k, v in extra.items())
-    profiles = excitation_profiles(g["L"], g["thickness"])
+    profiles = excitation_profiles(g["L"], g["thickness"], num_curves)
     exc = os.path.join(tmp, "excitations.csv")
     obs = os.path.join(tmp, "observations.csv")
     with open(exc, "w") as f:
@@ -612,8 +658,8 @@ pl_stride = 1
 tol_exp = {g['tol_exp']}
 max_iters = {g['max_iters']}
 method = "{method}"
-predictor = "{'geometric' if exact else 'quadratic'}"
-step_tol = {g['step_tol']}
+predictor = "{predictor}"
+{"" if g['step_tol'] is None else f"step_tol = {g['step_tol']}"}
 {ladder}
 [params]
 min_x = {MIN_X}
@@ -624,8 +670,8 @@ do_log = {DO_LOG}
 time_cutoff = 2000.0
 
 [sim_flags]
-random_sample = true
-num_points = {num_points}
+random_sample = {"false" if legacy_points else "true"}
+num_points = {legacy_points or num_points}
 log_pl = true
 self_normalize = false
 seed = {seed}
@@ -633,7 +679,7 @@ seed = {seed}
 [device]
 chunk_per_device = 1024
 n_devices = 1
-dtype = "float32"
+dtype = "{dtype}"
 {f'profile_dir = "{profile_dir}"' if profile_dir else ""}
 
 [paths]
@@ -649,7 +695,7 @@ def main():
     ap.add_argument("--num-points", type=int, default=32768,
                     help="samples of the chord and full-Newton main paths "
                          "(power_scan: 131072); the full-Newton off-grid path "
-                         "takes a quarter, the per-step kernel's path an eighth")
+                         "takes a quarter")
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args()
     t_all = time.perf_counter()
@@ -703,7 +749,9 @@ def main():
     paths.run("offgrid", "fused_horizon", n_main // 4, {"offgrid_full": rungs + 1})
     # 8-9. the per-step Newton kernel (coupled_newton_pallas)
     compare_newton_step(nk, solver, args.seed, err64, plain32, timing)
-    walls = paths.run("", "coupled_newton_pallas", n_main // 8, {"newton_step": steps})
+    print(f"  cut: main_newton_step {n_main // 8:,} -> {NEWTON_STEP_SAMPLES:,} samples "
+          f"(pays for main_gauss_seidel)")
+    walls = paths.run("", "coupled_newton_pallas", NEWTON_STEP_SAMPLES, {"newton_step": steps})
     step_wall_ms = 1e3 * walls / counts["newton_step"]
     step_kernel_ms = float(np.mean([r["kernel_ms"] for r in timing["newton_step"]]))
     print(f"  main_newton_step: wall per BDF step {step_wall_ms:.4f} ms = kernel "
@@ -723,6 +771,8 @@ def main():
     time_record_states(hk, args.seed, timing)
     main_pvsim(paths, args.seed)
     corner_gate(paths)
+    # the reference scheme (Gauss-Seidel, no kernel) against full Newton
+    gauss_seidel_phase(paths, hk, solver)
     sizes = exact_sizes(time.perf_counter() - t_all, launch_s, record_s)
     paths.run("", "fused_horizon_chord", sizes["main_exact"], {"stride_1": 1}, exact=True)
     paths.run("interp", "fused_horizon_chord", sizes["main_interp"], {"stride_1_record": 1})
@@ -1168,6 +1218,119 @@ def main_pvsim(paths, seed):
           f"{wall:.2f} s ({n / wall * 60:.0f} sims/min), one record launch; converged "
           f"{conv.mean():.4f}; snapshots at steps {steps.astype(int).tolist()} agree with "
           f"the PL trace (max rel {float(rel.max()) if rel.size else 0.0:.2e})")
+
+
+def gauss_seidel_grid():
+    """[grid] keys of main_gauss_seidel (see GS_T)."""
+    return dict(T=GS_T, time=POWER_SCAN["time"] * GS_T / POWER_SCAN["T"], tol_exp=7.0,
+                max_iters=GS_MAX_ITERS, step_tol=None, predictor="previous")
+
+
+def gauss_seidel_phase(paths, hk, solver):
+    """main_gauss_seidel: the reference scheme through the CLI, then the
+    same TOML with fused_horizon (one full-Newton launch); the checks and
+    figures of GS_T's comment."""
+    from bayesian_inference_trpl_tpu_torch import physics
+    from bayesian_inference_trpl_tpu_torch.models import trpl
+    from bayesian_inference_trpl_tpu_torch.tools.posterior_equivalence import (
+        compare_posteriors)
+    from bayesian_inference_trpl_tpu_torch.utils import sampling
+    t0 = time.perf_counter()
+    n = GS_LEGACY_POINTS ** sum(lo != hi for lo, hi in zip(MIN_X, MAX_X))
+    print(f"  cut: T {POWER_SCAN['T']:,} -> {GS_T:,} steps (dt 25 ps) for main_gauss_seidel; "
+          f"max_iters {GS_MAX_ITERS}; {n} legacy-grid samples, one curve", flush=True)
+    steps = []
+    step = solver.implicit_step
+
+    def recording(*a, **kw):
+        t1 = time.perf_counter()
+        out = step(*a, **kw)
+        its = out[3]
+        steps.append((t1, time.perf_counter(), its.max(), its.float().mean()))
+        if len(steps) == 1:
+            recording.args, recording.peak = a[:8], its
+        recording.peak = torch.maximum(recording.peak, its)
+        return out
+
+    kw = dict(exact=True, grid_extra=gauss_seidel_grid(), keep_counts=False, num_curves=1,
+              dtype="float64", legacy_points=GS_LEGACY_POINTS)
+    solver.implicit_step = recording
+    try:
+        paths.run("", "gauss_seidel", n, {}, name="main_gauss_seidel", **kw)
+    finally:
+        solver.implicit_step = step
+    launch = Recorder(hk.horizon_chord)
+    hk.horizon_chord = launch
+    try:
+        paths.run("", "fused_horizon", n, {"stride_1_full": 1},
+                  name="main_gauss_seidel_full", **kw)
+    finally:
+        hk.horizon_chord = launch.fn
+    if len(steps) != GS_T or len(launch.calls) != 1:
+        raise AssertionError(f"main_gauss_seidel: {len(steps)} Gauss-Seidel steps, "
+                             f"{len(launch.calls)} full-Newton launches")
+
+    cfg = paths.configs["main_gauss_seidel"]
+    min_x, max_x = cfg.params.bounds_converted()
+    _, _, X_host = sampling.make_grid(1, min_x, max_x, cfg.params.do_log,
+                                      cfg.sim_flags.as_dict())
+    P_gs, X_gs = paths.results["main_gauss_seidel"]
+    P_full, _ = paths.results["main_gauss_seidel_full"]
+    if X_gs.tobytes() != (X_host / physics.UNIT_CONVERSIONS).tobytes():
+        raise AssertionError("main_gauss_seidel: BAYRAN X differs from make_grid's legacy grid")
+    (row,) = compare_posteriors(P_gs[None], P_full[None])
+    both = np.isfinite(P_gs) & np.isfinite(P_full)
+    rel = float(np.max(np.abs(P_gs[both] - P_full[both]) / np.abs(P_full[both])))
+    checks = [("rho", row["spearman_rho"] >= 0.999),
+              ("top set", row["top_jaccard"] >= 0.99 or row["top_recall_2k"] >= 1.0),
+              ("finite patterns", row["finite_mismatch"] <= GS_FINITE_DIFF * n),
+              ("P", rel <= GS_P_RTOL)]
+    print(f"  gauss_seidel vs fused_horizon on {int(both.sum())} samples finite in both: "
+          f"rho {row['spearman_rho']:.9f}, top-1% Jaccard {row['top_jaccard']:.4f} (recall@2k "
+          f"{row['top_recall_2k']:.4f}), finite on one side only {row['finite_mismatch']}, "
+          f"max rel P diff {rel:.3e} (bound {GS_P_RTOL:g}); X bitwise make_grid's")
+    failed = [c for c, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"main_gauss_seidel: {', '.join(failed)} check failed")
+
+    sweeps = torch.stack([s[2] for s in steps]).double().cpu().numpy()
+    per_sample = torch.stack([s[3] for s in steps]).cpu().numpy()
+    step_ms = [1e3 * (s[1] - s[0]) for s in steps]
+    wall_ms = 1e3 * (steps[-1][1] - steps[0][0]) / GS_T
+    iter_ms = sum(step_ms) / sweeps.sum()
+    # Device time of one iteration: newton_iteration replayed as a CUDA graph
+    # on the first step's inputs (the loop's ~15 bookkeeping operations and
+    # its host read left out).  A graph cannot capture the host-to-card copy
+    # that writes trpl._onehot's 1, so the capture builds the same rows on
+    # the card.
+    args = recording.args
+    onehot = trpl._onehot
+    trpl._onehot = lambda x, idx: (torch.arange(x.shape[-1], device=x.device)
+                                   == idx).to(x.dtype)[None]
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            trpl.newton_iteration(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            trpl.newton_iteration(*args)
+    finally:
+        trpl._onehot = onehot
+    dev_ms = cuda_ms(graph.replay, 20)
+    launch_ms = 1e3 * launch.calls[0][2]
+    print(f"  gauss_seidel: wall per BDF step {wall_ms:.3f} ms; iterations per step (the "
+          f"loop's sweeps) mean {sweeps.mean():.2f}, max {int(sweeps.max())}; per sample mean "
+          f"{per_sample.mean():.2f}; converged share {float(np.isfinite(P_gs).mean()):.4f}; "
+          f"the share that max_iters m would converge: " + ", ".join(f"{m} {float((recording.peak <= m).float().mean()):.4f}"
+                                    for m in (32, 64, 128, 256)))
+    print(f"  gauss_seidel: {iter_ms:.3f} ms per iteration, of which {dev_ms:.3f} ms on the "
+          f"card (newton_iteration as a CUDA graph): host share {1 - dev_ms / iter_ms:.3f}; "
+          f"the full-Newton launch {launch_ms:.1f} ms = {launch_ms / GS_T:.4f} ms per step: "
+          f"the Gauss-Seidel loop takes {wall_ms * GS_T / launch_ms:.0f}x its time per step")
+    phase("main_gauss_seidel", t0, f"{n} samples x 1 curve x {GS_T} steps, float64: "
+          f"Gauss-Seidel vs full Newton PASS")
 
 
 def corner_gate(paths):
@@ -1783,7 +1946,7 @@ class MainPaths:
     def __init__(self, hk, nk, run_main, bio, args, counts):
         self.hk, self.nk, self.run_main, self.bio = hk, nk, run_main, bio
         self.seed, self.counts = args.seed, counts
-        self.results = {}
+        self.results, self.configs = {}, {}
 
     def launches(self):
         return dict(self.hk.launches, newton_step=self.nk.launches)
@@ -1807,16 +1970,20 @@ class MainPaths:
         return time.perf_counter() - t0, self.launches()
 
     def run(self, kind, method, num_points, per_chunk_curve, exact=False,
-            grid_extra=None, name=None, expected=None, keep_counts=True, profile_dir=None):
+            grid_extra=None, name=None, expected=None, keep_counts=True, profile_dir=None,
+            num_curves=3, dtype="float32", legacy_points=None):
         """Returns the run's wall seconds; its (P, X) go to
-        ``results[name]``.  ``kind``: "" on-grid, "offgrid" or "interp" (the
-        off-grid times with offgrid_fused = false: the interpolation
-        fallback).  ``exact``: no ladder (exact fixed-dt mode); its counts
+        ``results[name]`` and its loaded TOML to ``configs[name]``.
+        ``kind``: "" on-grid, "offgrid" or "interp" (the off-grid times
+        with offgrid_fused = false: the interpolation fallback).  ``exact``: no ladder (exact fixed-dt mode); its counts
         are kept as ``<kernel>_exact``.  ``grid_extra``: [grid] keys added
         or replaced.  ``expected``: the run's launches per kernel, in place
         of ``per_chunk_curve`` times the chunk-curves.  ``keep_counts``: the
         launches are the kernels line's for their kernels.  ``profile_dir``:
-        [device] profile_dir."""
+        [device] profile_dir.  ``num_curves``, ``dtype``, ``legacy_points``:
+        as write_main_inputs; with ``legacy_points`` the grid holds
+        ``num_points`` samples."""
+        from bayesian_inference_trpl_tpu_torch.config import load_config
         name = name or "main" + {"fused_horizon_chord": "", "fused_horizon": "_full",
                                  "coupled_newton_pallas": "_newton_step"}[method] + (
                                      f"_{kind}" if kind else "") + ("_exact" if exact else "")
@@ -1825,12 +1992,19 @@ class MainPaths:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
             cfg_path = write_main_inputs(tmp, num_points, self.seed, bool(kind), method,
-                                         exact, grid_extra, profile_dir)
+                                         exact, grid_extra, profile_dir, num_curves, dtype,
+                                         legacy_points)
+            self.configs[name] = load_config(cfg_path)
+            T = self.configs[name].grid.num_steps
             print(f"  {name} path: method {method}; num_points reduced 131072 -> "
-                  f"{num_points}; 3 curves x {POWER_SCAN['T']} steps; chunk 1024; float32"
+                  f"{num_points}" + (f" (legacy grid, {legacy_points} per free dimension)"
+                                     if legacy_points else "")
+                  + f"; {num_curves} curve{'s' if num_curves > 1 else ''} x {T} steps; "
+                  f"chunk 1024; {dtype}"
                   + (f"; t = 0 plus {OFFGRID_POINTS} log-spaced times per curve"
                      if kind else "")
-                  + ("; no ladder (exact fixed-dt), geometric predictor" if exact else "")
+                  + (f"; no ladder (exact fixed-dt), {self.configs[name].grid.predictor} "
+                     "predictor" if exact else "")
                   + (f"; [grid] {grid_extra}" if grid_extra else ""), flush=True)
             phase(f"{name}_inputs", t0, f"synthetic data and TOML in {tmp}")
             main_s, run_counts = self.cli(cfg_path, tmp)
@@ -1839,12 +2013,13 @@ class MainPaths:
             raise AssertionError(f"BAYRAN shapes {P.shape} {X.shape}")
         self.results[name] = (P, X)
         finite = float(np.isfinite(P).mean())
-        sims_per_min = 3 * num_points / main_s * 60.0
-        phase(name, t0, f"{num_points} samples x 3 curves; {sims_per_min:.0f} "
+        sims_per_min = num_curves * num_points / main_s * 60.0
+        phase(name, t0, f"{num_points} samples x {num_curves} curve"
+              f"{'s' if num_curves > 1 else ''}; {sims_per_min:.0f} "
               f"sims/min; finite share of P {finite:.4f}; launches {run_counts}")
         if finite < 0.99:
             raise AssertionError(f"finite share of P {finite:.4f} < 0.99")
-        chunk_curves = 3 * -(-num_points // 1024)
+        chunk_curves = num_curves * -(-num_points // 1024)
         want = expected or {k: v * chunk_curves for k, v in per_chunk_curve.items()}
         for k, v in run_counts.items():
             if v != want.get(k, 0):
@@ -1852,7 +2027,7 @@ class MainPaths:
                                      f"times, expected {want.get(k, 0)}")
         print("  launches as expected: " + (
             ", ".join(f"{v} {k}" for k, v in want.items()) if expected else
-            f"{', '.join(f'{v} {k}' for k, v in per_chunk_curve.items())} "
+            f"{', '.join(f'{v} {k}' for k, v in per_chunk_curve.items()) or 'no kernel'} "
             f"per chunk per curve, {chunk_curves} chunk-curves"))
         if keep_counts:
             self.counts.update({k + ("_exact" if exact else ""): run_counts[k]

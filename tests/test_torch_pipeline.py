@@ -12,7 +12,6 @@ gates, so P agrees to the acceptance level: 1e-6 relative.  X is bitwise
 identical and the port's BAYRAN pair loads with the JAX package's loader.
 """
 import numpy as np
-import pytest
 import torch
 
 from bayesian_inference_trpl_tpu import config as jcfg
@@ -79,28 +78,36 @@ def test_bayes_matches_jax(tmp_path, monkeypatch):
     np.testing.assert_array_equal(X2, X_t)
 
 
-def test_unported_branches_raise(tmp_path):
-    """Branches the port does not carry yet raise NotImplementedError
-    naming their ROADMAP item instead of falling back.  Resume (A8),
-    adaptive tau routing (A9), the interpolation fallback (A12) and more
-    than one device (A15) are ported: tests/test_torch_resume.py,
-    test_torch_adaptive.py, test_torch_interp_bayes.py and
-    test_torch_sharding.py."""
+def test_unported_branches_raise(tmp_path, monkeypatch):
+    """The branches that raised NotImplementedError naming ROADMAP A13
+    until the Gauss-Seidel scheme and the legacy grid sampler were ported
+    now run on the CPU and match the JAX package: method gauss_seidel
+    (max_iters 300: the reference scheme needs hundreds of sweeps on the
+    first steps) within 1e-9, and random_sample = false (the legacy grid
+    over three free dimensions) within this file's 1e-6; X bitwise."""
     obs, exc = _write_synthetic(tmp_path, num_curves=1)
+    monkeypatch.delenv("TRPL_HORIZON_INTERPRET", raising=False)
     cases = [
-        (dict(grid=dict(method="gauss_seidel")), "A13"),
-        (dict(sim_flags=dict(random_sample=False)), "A13"),
+        (dict(grid=dict(method="gauss_seidel", max_iters=300),
+              sim_flags=dict(num_points=4)), 4, 1e-9),
+        (dict(sim_flags=dict(random_sample=False, num_points=2)), 8, 1e-6),
     ]
-    for change, item in cases:
-        cfg = _config(tcfg, tmp_path, obs, exc, "X")
-        for k, v in change.items():
-            if isinstance(v, dict):
+    for i, (change, n, rtol) in enumerate(cases):
+        out = []
+        for mod, run in ((tcfg, lambda c: tbayes(c, device="cpu")), (jcfg, jbayes)):
+            cfg = _config(mod, tmp_path, obs, exc, f"{mod.__name__}{i}")
+            for k, v in change.items():
                 for kk, vv in v.items():
                     setattr(getattr(cfg, k), kk, vv)
-            else:
-                setattr(cfg, k, v)
-        with pytest.raises(NotImplementedError, match=item):
-            tbayes(cfg, device="cpu")
+            if not cfg.sim_flags.random_sample:
+                free = (2, 5, 9)
+                cfg.params.max_x = [b if j in free else a for j, (a, b) in
+                                    enumerate(zip(cfg.params.min_x, cfg.params.max_x))]
+            out.append(run(cfg))
+        (P_t, X_t, _), (P_j, X_j, _) = out
+        assert X_t.tobytes() == np.asarray(X_j).tobytes()
+        assert P_t.shape == (1, n) and np.isfinite(P_t).all()
+        np.testing.assert_allclose(P_t, P_j, rtol=rtol)
 
 
 def test_cli_runs_on_cpu(tmp_path):

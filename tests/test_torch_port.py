@@ -72,6 +72,27 @@ def test_make_grid_bitwise_equal_to_jax():
         assert Pt.shape == Pj.shape
 
 
+def test_legacy_sampler_copies_equal_jax():
+    """The numpy copies of the legacy coarse-grid sampler (index_grid,
+    param_grid, refine_grid) and make_grid's random_sample = false branch
+    return the JAX package's arrays bit for bit."""
+    refs = [np.array([2, 3, 1]), np.array([2, 1, 2])]
+    N = tsamp.refine_grid(tsamp.refine_grid(np.array([0]), refs[0])[1::2], refs[1])
+    assert N.tobytes() == jsamp.refine_grid(
+        jsamp.refine_grid(np.array([0]), refs[0])[1::2], refs[1]).tobytes()
+    ind = tsamp.index_grid(N, refs)
+    assert ind.tobytes() == jsamp.index_grid(N, refs).tobytes()
+    args = (ind, refs, np.array([1.0, 0.0, 5.0]), np.array([100.0, 50.0, 5.0]),
+            np.array([1, 0, 0]))
+    assert tsamp.param_grid(*args).tobytes() == jsamp.param_grid(*args).tobytes()
+    flags = dict(random_sample=False, num_points=3, override_equal_mu=True)
+    box = (np.array([1e8, 1.0, 1.0, 2.0]), np.array([1e8, 50.0, 20.0, 2000.0]),
+           [1, 0, 0, 0])
+    _, _, Xt = tsamp.make_grid(1, *box, flags)
+    _, _, Xj = jsamp.make_grid(1, *box, flags)
+    assert Xt.shape == (27, 4) and Xt.tobytes() == Xj.tobytes()
+
+
 @pytest.mark.parametrize("S", [8, 16, 32, 64])
 def test_ladder_tables_equal_to_jax(S):
     np.testing.assert_array_equal(ttwo._lagrange_weight_table(S),

@@ -163,8 +163,9 @@ def test_mesh_and_devices(monkeypatch):
 
 def test_bayes_on_every_device_and_unported_method(tmp_path):
     """bayes with n_devices = None runs on every visible device (one CPU)
-    and with n_devices = 3 on three; gauss_seidel still raises, naming
-    A13."""
+    and with n_devices = 3 on three; gauss_seidel (which raised naming
+    ROADMAP A13 until it was ported) on three devices equals one device
+    bit for bit."""
     obs, exc = write_inputs(tmp_path)
     cfg = make_config(tmp_path, obs, exc, "A", n_devices=None, num_points=4)
     _, _, info = bayes(cfg, device="cpu")
@@ -172,9 +173,16 @@ def test_bayes_on_every_device_and_unported_method(tmp_path):
     cfg = make_config(tmp_path, obs, exc, "B", n_devices=3, num_points=4)
     _, _, info = bayes(cfg, device="cpu")
     assert info["num_devices"] == 3 and info["device"] == "cpu,cpu,cpu"
-    cfg.grid.method = "gauss_seidel"
-    with pytest.raises(NotImplementedError, match="A13"):
-        bayes(cfg, device="cpu")
+    res = []
+    for out, n, cpd in (("GS3", 3, 2), ("GS1", 1, 6)):
+        cfg = make_config(tmp_path, obs, exc, out, n_devices=n, num_points=4,
+                          chunk_per_device=cpd)
+        cfg.grid.method, cfg.grid.max_iters = "gauss_seidel", 300
+        P, X, info = bayes(cfg, device="cpu")
+        assert info["num_devices"] == n and np.isfinite(P).all()
+        res.append((P, X))
+    assert res[0][0].tobytes() == res[1][0].tobytes()
+    assert res[0][1].tobytes() == res[1][1].tobytes()
 
 
 class Stop(Exception):

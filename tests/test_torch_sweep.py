@@ -84,8 +84,11 @@ def test_run_solver_matches_jax(solver_results):
 
 
 def test_run_sweep_cli_and_refusals(sweeps, tmp_path):
-    """The CLI writes the npz keys of the JAX tool; gauss_seidel raises
-    naming A13; without a card the default device raises (no fallback)."""
+    """The CLI writes the npz keys of the JAX tool, with fused_horizon and
+    with gauss_seidel (which raised naming ROADMAP A13 until it was
+    ported; its values within 1e-10 of the JAX tool's, the ambipolar E
+    held absolutely as above); without a card the default device raises
+    (no fallback)."""
     sw = str(tmp_path / "sweep.npz")
     np.savez(sw, **dict(sweeps["port"], T=np.asarray(20)))
     out = str(tmp_path / "solver.npz")
@@ -95,8 +98,19 @@ def test_run_sweep_cli_and_refusals(sweeps, tmp_path):
                         "mat_par", "length", "time", "L", "T"}
     # T 20: snapshots at steps 0, 2, 6 and 20 (1% and 3% round to 0).
     assert res["N"].shape == (2, 4, 128) and np.isfinite(res["pl"]).all()
-    with pytest.raises(NotImplementedError, match="A13"):
-        trun.main([sw, out, "--method", "gauss_seidel", "--device", "cpu"])
+    trun.main([sw, out, "--method", "gauss_seidel", "--device", "cpu"])
+    gs = dict(np.load(out))
+    ref = jrun.run_solver(dict(np.load(sw)), "gauss_seidel", "float64")
+    assert set(gs) == set(res) and set(ref) <= set(gs)
+    assert gs["converged"].all()
+    for k in ref:
+        a, b = np.asarray(gs[k]), np.asarray(ref[k])
+        assert a.shape == b.shape, k
+        if a.dtype == bool:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-15 if k == "E" else 0.0,
+                                       err_msg=k)
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             trun.main([sw, out, "--method", "fused_horizon"])
