@@ -13,6 +13,8 @@
 * ``corner_cache``: the corner gate's parameter matrices and its shipped
   oracle results.
 * ``nonconverged``: where in the parameter box a run's NaN samples lie.
+* ``warmup``: one chunk per curve of a config, so that the kernel
+  library's build and the first launches are paid before a production run.
 
 Each tool that runs the solver takes ``--device cuda|cpu`` (default
 ``cuda``), as ``run.py`` does.

@@ -1,17 +1,23 @@
-"""Host-side parameter-space samplers (numpy).
+"""Parameter-space samplers.
 
-A copy of the JAX package's ``random_grid`` / ``apply_overrides`` /
-``make_grid`` (reference: bayeslib.py:18-76): per-dimension sequential
-draws from one RNG stream, pinned dimensions (min == max), log10-uniform
-dimensions, and the equality overrides mu_n = mu_p, S_b = S_f, C_p = C_n;
-and of its legacy coarse-grid sampler (``index_grid`` / ``param_grid`` /
-``refine_grid``), which ``make_grid`` takes with ``random_sample = false``.
-At the same inputs the sample matrix is bitwise equal to the JAX
-package's.
+A copy of the JAX package's host samplers ``random_grid`` /
+``apply_overrides`` / ``make_grid`` (reference: bayeslib.py:18-76):
+per-dimension sequential draws from one RNG stream, pinned dimensions
+(min == max), log10-uniform dimensions, and the equality overrides mu_n =
+mu_p, S_b = S_f, C_p = C_n; and of its legacy coarse-grid sampler
+(``index_grid`` / ``param_grid`` / ``refine_grid``), which ``make_grid``
+takes with ``random_sample = false``.  At the same inputs the sample
+matrix is bitwise equal to the JAX package's.
+
+``random_grid_device`` is the device sampler (the JAX package's
+``jax.random`` one): the same box semantics, drawn on the device of a
+``torch.Generator``.  Its streams are torch's, so it equals the JAX
+sampler in distribution, not draw for draw.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Parameter-column contract (physics.PARAM_NAMES): equality overrides by index.
 IDX_MUN, IDX_MUP = 2, 3
@@ -34,6 +40,27 @@ def random_grid(min_x, max_x, do_log, num_points: int, rng=None) -> np.ndarray:
         else:
             grid[:, i] = rng.uniform(min_x[i], max_x[i], num_points)
     return grid
+
+
+def random_grid_device(generator: torch.Generator, min_x, max_x, do_log,
+                       num_points: int, dtype=torch.float64) -> torch.Tensor:
+    """Draw num_points samples from the box [min_x, max_x] on the
+    generator's device: one uniform draw per sample and dimension,
+    log10-uniform on ``do_log`` dimensions (a zero bound there is taken as
+    1 in the logarithm, as the JAX sampler's guard does), linear
+    elsewhere, and pinned dimensions (min == max) exactly their bound."""
+    dev = generator.device
+    min_x = torch.as_tensor(np.asarray(min_x, float), dtype=dtype, device=dev)
+    max_x = torch.as_tensor(np.asarray(max_x, float), dtype=dtype, device=dev)
+    do_log = torch.as_tensor(np.asarray(do_log, bool), device=dev)
+    u = torch.rand((num_points, min_x.shape[0]), generator=generator, dtype=dtype,
+                   device=dev)
+    lo = torch.where(min_x > 0, min_x, 1.0).log10()
+    hi = torch.where(max_x > 0, max_x, 1.0).log10()
+    log_draw = 10.0 ** (lo + u * (hi - lo))
+    lin_draw = min_x + u * (max_x - min_x)
+    draw = torch.where(do_log, log_draw, lin_draw)
+    return torch.where(min_x == max_x, min_x, draw)
 
 
 def apply_overrides(X: np.ndarray, sim_flags: dict) -> np.ndarray:

@@ -4,11 +4,12 @@
 
 Phases, each printed on its own line with its seconds:
 
-1. build   -- nvcc builds csrc/*.cu (the horizon kernel in 6 parts and
-              the per-step Newton kernel in 2, one nvcc each, all in
-              parallel) into one library under build/ (plain C interface,
-              loaded with ctypes); prints every kernel's ptxas registers
-              and spills.
+1. build   -- tools/warmup.main on main's TOML (one chunk of 1,024
+              samples per curve), whose first launch builds csrc/*.cu (the
+              horizon kernel in 6 parts and the per-step Newton kernel in
+              2, one nvcc each, all in parallel) into one library under
+              build/ (plain C interface, loaded with ctypes); prints every
+              kernel's ptxas registers and spills.
 2. compare -- the horizon kernel's chord body against its plain PyTorch
               version (group=1), on the card, on the same inputs: a seeded
               sample box, one curve of the power_scan configuration.  The
@@ -99,6 +100,16 @@ Phases, each printed on its own line with its seconds:
               share (and what max_iters 32/64/128 would converge), and the
               host share of an iteration (its device time from a CUDA-graph
               replay) against the full-Newton launch.
+    main_legacy -- utils/legacy_pipeline.grid_refine_bayes with
+              make_trpl_forward on power_scan's forward model (L 128,
+              80,000 steps, float32, fused_horizon), PL every 200 steps
+              (401 times): observations from the port's forward at a truth
+              point with 2% noise, then three refinement levels (1,024
+              cells, then <= 64 kept cells x 16 twice), each level one
+              record launch; the device likelihood against a numpy copy of
+              the JAX package's loop (see LEGACY_PL_STRIDE).
+    device_sampler -- utils/sampling.random_grid_device on a CUDA generator
+              at 131,072 x 13: bounds, pinning, moments, determinism.
 12. main_exact -- as 3 on a TOML with no ladder and the geometric
               predictor: exactly one stride-1 launch per chunk and curve.
     main_interp -- as 3 with main_offgrid's observations and
@@ -297,6 +308,43 @@ GS_MAX_ITERS = 256
 GS_LEGACY_POINTS = 2
 GS_FINITE_DIFF = 0.01
 GS_P_RTOL = 1e-5
+# main_legacy: the grid-refinement pipeline (utils/legacy_pipeline) on
+# power_scan's forward model (L 128, 80,000 steps of 25 ps, float32,
+# fused_horizon: one record launch per forward call; main_pvsim's tol_exp,
+# max_iters and "previous" predictor, the "exp" initial condition), PL
+# every LEGACY_PL_STRIDE steps: 401 observation times, the size of a
+# measured curve.  The observations are the port's own forward at
+# LEGACY_TRUTH (user units, inside MIN_X/MAX_X) with LEGACY_NOISE seeded
+# relative noise, std LEGACY_NOISE of each value.  Level 0 is 2 cells per
+# free dimension (1,024: main_gauss_seidel's grid); levels 1 and 2 split
+# the LEGACY_SPLIT columns (B, Sf, tau_n, tau_p) by 2, 16 sub-cells per
+# kept cell.  The model error of the coarse levels makes their posterior
+# nearly flat (a 10 ns rehearsal on the CPU: the top 256 of 1,024 cells
+# within 2.5% of the largest mass), so no fixed floor keeps a known number
+# of cells; each level's floor is the (LEGACY_KEEP + 1)-th largest mass of
+# the level before (LegacyFloors), which keeps at most LEGACY_KEEP cells:
+# a level holds <= 1,024 cells, one launch.  The device likelihood is
+# held to a numpy copy of the JAX package's loop within LEGACY_LNP_RTOL of
+# each row's sum of its terms' magnitudes (tests/test_torch_legacy_pipeline.py's
+# LNP_RTOL_F32 for a float32 PL: the loop squares the model error as a
+# np.float32 scalar, which numpy may round one ulp off the correctly rounded
+# square; the sum over 401 time points runs in another order, and its
+# terms cancel, so |lnp| can lie far below them) on up to
+# LEGACY_HOST_BLOCKS blocks per level, evenly spread (the loop takes
+# ~0.1 s a block of 16 on one host core).
+LEGACY_PL_STRIDE = 200
+LEGACY_TRUTH = [1e8, 3e15, 20.0, 20.0, 4.8e-11, 10.0, 10.0, 4.4e-29, 4.4e-29, 511.0,
+                871.0, 0.1, 0.0]
+LEGACY_NOISE = 0.02
+LEGACY_SPLIT = (4, 5, 9, 10)
+LEGACY_LEVELS = 3
+LEGACY_KEEP = 64
+LEGACY_LNP_RTOL = 2.4e-7
+LEGACY_HOST_BLOCKS = 8
+# The device sampler (utils/sampling.random_grid_device) on a CUDA
+# generator: samples, and the moments' bound in standard errors.
+DEVICE_SAMPLER_POINTS = 131072
+DEVICE_SAMPLER_SE = 6.0
 # main_newton_step's samples (C9: 4,096 before main_gauss_seidel, whose
 # time they pay for); the same 2,142 launches per chunk-curve.
 NEWTON_STEP_SAMPLES = 1024
@@ -488,11 +536,10 @@ def ladder_inputs(num, dtype, seed, offgrid=False, method="fused_horizon_chord",
     return run
 
 
-def cuda_ms(fn, reps, warmup=True):
-    """Mean milliseconds per call of ``fn`` on the card: one warm-up call
-    (unless ``warmup`` is False), then CUDA events around ``reps`` calls."""
-    if warmup:
-        fn()
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call of ``fn`` on the card: one warm-up call,
+    then CUDA events around ``reps`` calls."""
+    fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -706,6 +753,7 @@ def main():
     from bayesian_inference_trpl_tpu_torch.ops import kernel_lib
     from bayesian_inference_trpl_tpu_torch.ops import newton_kernel as nk
     from bayesian_inference_trpl_tpu_torch.run import main as run_main
+    from bayesian_inference_trpl_tpu_torch.tools import warmup
     from bayesian_inference_trpl_tpu_torch.utils import io as bio
 
     name = torch.cuda.get_device_name(0)
@@ -713,11 +761,15 @@ def main():
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{card_line}", flush=True)
 
-    # 1. build
+    # 1. build: the warmup tool on main's TOML builds the library at its
+    # first launch
     t0 = time.perf_counter()
-    lib = kernel_lib.build_library()
+    with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
+        warmup.main([write_main_inputs(tmp, 1024, args.seed), "--device", "cuda"])
+    lib = kernel_lib.build_info["path"]
     ptx = kernel_lib.ptxas_entries(kernel_lib.build_info.get("ptxas", ""))
-    phase("build", t0, f"nvcc {kernel_lib.build_info['seconds']:.2f} s -> "
+    phase("build", t0, f"tools.warmup on main's TOML; nvcc "
+          f"{kernel_lib.build_info['seconds']:.2f} s -> "
           f"{os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))}"
           + ("" if ptx else " (cached: no ptxas report)"))
     for entry_name, regs, stores, loads, frame in ptx:
@@ -773,9 +825,14 @@ def main():
     corner_gate(paths)
     # the reference scheme (Gauss-Seidel, no kernel) against full Newton
     gauss_seidel_phase(paths, hk, solver)
+    # the legacy grid-refinement inference (record launches) and the
+    # device sampler
+    legacy_launches = legacy_phase(paths)
+    device_sampler_phase(args.seed)
     sizes = exact_sizes(time.perf_counter() - t_all, launch_s, record_s)
     paths.run("", "fused_horizon_chord", sizes["main_exact"], {"stride_1": 1}, exact=True)
     paths.run("interp", "fused_horizon_chord", sizes["main_interp"], {"stride_1_record": 1})
+    counts["stride_1_record"] += legacy_launches
     # 13. the accuracy gate on the bundled exact caches
     gate_phase(hk)
     # 14. posterior equivalence, ladder against exact fixed-dt stepping
@@ -1126,9 +1183,9 @@ def compare_record_states(hk, seed, err64, plain32):
 def time_record_states(hk, seed, timing):
     """One record launch with both traces at main_pvsim's shape (1024
     samples, 80,000 steps, PL and state every PVSIM_STRIDE steps, float32),
-    timed (warm-up + 1 launch, CUDA events); then the same launch with and
-    without the two traces in turns (without, with, with, without; one
-    launch each after a warm-up), for what the traces cost."""
+    timed (warm-up + 1 launch, CUDA events).  What the traces cost (+0.7-1.6%
+    in turns with and without them, PERF.md section 6) is timing-only work
+    for the port's bench, not re-measured here."""
     mode = "stride_1_record_states"
     t0 = time.perf_counter()
     (r,) = time_phase(hk, ladder_inputs(1024, torch.float32, seed, sched=EXACT_SCHED,
@@ -1136,17 +1193,6 @@ def time_record_states(hk, seed, timing):
                       reps=1)
     timing[mode] = [r]
     out = r["out"]
-    args = r["args"]
-    bare = args[:-1] + (args[-1]._replace(state_stride=0, record_iters=False),)
-    turns = {"with": [], "without": []}
-    hk.horizon_chord(*bare)
-    for name in ("without", "with", "with", "without"):
-        a = args if name == "with" else bare
-        turns[name].append(cuda_ms(lambda: hk.horizon_chord(*a), 1, warmup=False))
-    print(f"  record launch at the same shape in turns, PL trace only: "
-          f"{turns['without'][0]:.3f} / {turns['without'][1]:.3f} ms; with the state and "
-          f"iteration traces: {turns['with'][0]:.3f} / {turns['with'][1]:.3f} ms "
-          f"({100 * (sum(turns['with']) / sum(turns['without']) - 1):+.2f}%)")
     mb = out.states.numel() * out.states.element_size() / 1e6
     print(f"  kernel f32 {r['label']} x {r['steps']} steps, {out.n.shape[0]} samples: "
           f"{r['kernel_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
@@ -1331,6 +1377,214 @@ def gauss_seidel_phase(paths, hk, solver):
           f"the Gauss-Seidel loop takes {wall_ms * GS_T / launch_ms:.0f}x its time per step")
     phase("main_gauss_seidel", t0, f"{n} samples x 1 curve x {GS_T} steps, float64: "
           f"Gauss-Seidel vs full Newton PASS")
+
+
+def jax_model_err(F, ref):
+    """The JAX package's model_err (utils/legacy_pipeline.py:30-46), copied
+    as written: the host reference of main_legacy's likelihood."""
+    F = np.asarray(F)
+    N = int(np.prod(ref))
+    pN = 1
+    err = []
+    for m in range(len(ref)):
+        dF = np.abs(F - np.roll(F, -pN))
+        dk = ref[m] * pN
+        for n in range(pN):
+            dF[dk - pN + n:N:dk] = 0
+        err.append(dF.max())
+        pN *= ref[m]
+    return np.array(err)
+
+
+def jax_forward_lnp(F, values, std, ref):
+    """The JAX package's forward_lnp (utils/legacy_pipeline.py:49-61),
+    copied as written but for one cast: a float32 F minus a float64 value
+    is float64 under numpy >= 2's promotion (NEP 50), float32 under older
+    numpy's, so the difference is taken in float64 here whatever numpy this
+    machine has.  Also returns each row's sum of its terms' magnitudes,
+    the scale of the rounding of a sum of those terms in another order."""
+    F = np.asarray(F)
+    lnp = np.zeros(len(F))
+    scale = np.zeros(len(F))
+    for n in range(F.shape[1]):
+        sig = jax_model_err(F[:, n], ref)
+        sg2 = 2.0 * (sig.max() ** 2 + std[n] ** 2)
+        res = (F[:, n].astype(np.float64) - values[n]) ** 2 / sg2
+        half_log = np.log(np.pi * sg2) / 2.0
+        lnp -= res + half_log
+        scale += res + abs(half_log)
+    return lnp, scale
+
+
+class LegacyFloors:
+    """main_legacy's min_p, read by grid_refine_bayes as each level starts:
+    0 at level 0, then the (LEGACY_KEEP + 1)-th largest posterior mass of
+    the level before, computed as grid_refine_bayes computes it from that
+    level's likelihood (``scored``: one forward_lnp call per level)."""
+
+    def __init__(self, scored):
+        self.scored, self.floors = scored, []
+
+    def __getitem__(self, level):
+        if level != len(self.floors) or len(self.scored) != level:
+            raise AssertionError(f"LegacyFloors: level {level} asked after "
+                                 f"{len(self.scored)} scored levels")
+        floor = 0.0
+        if level:
+            lnp = self.scored[-1][2].cpu().numpy()
+            P = np.exp(lnp - np.max(lnp))
+            P /= P.sum()
+            floor = float(np.sort(P)[-LEGACY_KEEP - 1]) if len(P) > LEGACY_KEEP else 0.0
+        self.floors.append(floor)
+        return floor
+
+
+def legacy_phase(paths):
+    """main_legacy: grid_refine_bayes with make_trpl_forward on the card
+    (see LEGACY_PL_STRIDE).  Checks the launches (one per level slice plus
+    the data launch, nothing but the record launch), P (finite, summing to
+    1 within 1e-12) and each level's device likelihood against the host
+    loop; prints the cells per level, the seconds per level and the best
+    cell against the truth.  Returns its record launches."""
+    from bayesian_inference_trpl_tpu_torch import physics
+    from bayesian_inference_trpl_tpu_torch.models.driver import SimParams
+    from bayesian_inference_trpl_tpu_torch.utils import legacy_pipeline as lp
+    from bayesian_inference_trpl_tpu_torch.utils import sampling
+    g = POWER_SCAN
+    t0 = time.perf_counter()
+    uc = physics.UNIT_CONVERSIONS
+    min_x, max_x = np.asarray(MIN_X) * uc, np.asarray(MAX_X) * uc
+    free = min_x != max_x
+    refs = ([np.where(free, 2, 1)]
+            + [np.isin(np.arange(13), LEGACY_SPLIT) + 1] * (LEGACY_LEVELS - 1))
+    sim = SimParams(length=g["thickness"], time=g["time"], L=g["L"], T=g["T"],
+                    pl_stride=LEGACY_PL_STRIDE, tol_exp=g["tol_exp"],
+                    max_iters=g["max_iters"], method="fused_horizon")
+    forward = lp.make_trpl_forward(sim, (1e18 / 1e7 ** 3, 100.0), "exp",
+                                   dtype=torch.float32, device="cuda")
+    print(f"  main_legacy: L {g['L']}, {g['T']} steps of {g['time'] / g['T'] * 1e3:g} ps, "
+          f"PL every {LEGACY_PL_STRIDE} steps ({sim.num_pl} times), float32, fused_horizon, "
+          f"exp initial condition, tol_exp {g['tol_exp']}, max_iters {g['max_iters']}; "
+          f"levels {[int(np.prod(r)) for r in refs]} sub-cells per kept cell, at most "
+          f"{LEGACY_KEEP} kept; max_batch {lp.MAX_BATCH}", flush=True)
+    calls, scored = [], []
+
+    def timed_forward(X):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        F = forward(X)
+        torch.cuda.synchronize()
+        calls.append((len(X), t1, time.perf_counter()))
+        return F
+
+    lnp_fn = lp.forward_lnp
+
+    def recording_lnp(F, values, std, ref):
+        out = lnp_fn(F, values, std, ref)
+        torch.cuda.synchronize()
+        scored.append((F, ref, out, time.perf_counter()))
+        return out
+
+    rng = np.random.default_rng(paths.seed)
+    paths.zero()
+    truth = np.asarray(LEGACY_TRUTH) * uc
+    clean = forward(truth[None])[0].double().cpu().numpy()
+    values = clean * (1.0 + LEGACY_NOISE * rng.standard_normal(clean.size))
+    data = (sim.pl_times, values, LEGACY_NOISE * np.abs(values))
+    floors = LegacyFloors(scored)
+    lp.forward_lnp = recording_lnp
+    try:
+        N, P = lp.grid_refine_bayes(timed_forward, refs, min_x, max_x, floors, data,
+                                    do_log=DO_LOG)
+    finally:
+        lp.forward_lnp = lnp_fn
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in paths.launches().items() if v}
+    if len(calls) != len(refs) or len(scored) != len(refs):
+        raise AssertionError(f"main_legacy: {len(calls)} forward calls and {len(scored)} "
+                             f"likelihood calls for {len(refs)} levels")
+    want = sum(-(-n // lp.MAX_BATCH) for n, _, _ in calls) + 1
+    if launched != {"stride_1_record": want}:
+        raise AssertionError(f"main_legacy launched {launched}, expected {want} record "
+                             f"launches (one per level slice and the data launch)")
+    if not (np.isfinite(P).all() and abs(P.sum() - 1.0) <= 1e-12):
+        raise AssertionError(f"main_legacy: P finite {bool(np.isfinite(P).all())}, "
+                             f"sums to {P.sum()!r}")
+    worst, cancel = 0.0, 0.0
+    for level, ((n, t1, t2), (F, ref, lnp, t3)) in enumerate(zip(calls, scored)):
+        block = int(np.prod(ref))
+        nb = n // block
+        picks = np.unique(np.linspace(0, nb - 1, min(nb, LEGACY_HOST_BLOCKS)).round().astype(int))
+        Fh, dev = F.cpu().numpy(), lnp.cpu().numpy()
+        for b in picks:
+            ref_lnp, scale = jax_forward_lnp(Fh[b * block:(b + 1) * block], values, data[2],
+                                             ref)
+            err = (np.abs(dev[b * block:(b + 1) * block] - ref_lnp) / scale).max()
+            if not err <= LEGACY_LNP_RTOL:
+                raise AssertionError(f"main_legacy level {level} block {b}: device likelihood "
+                                     f"off the host loop by {err:.3e} of its terms' magnitude")
+            worst = max(worst, err)
+            cancel = max(cancel, float((scale / np.abs(ref_lnp)).max()))
+        if level and n // block > LEGACY_KEEP:
+            raise AssertionError(f"main_legacy level {level}: {n // block} kept cells")
+        kept = "" if level == 0 else (f" ({n // block} kept cells x {block}, floor "
+                                      f"{floors.floors[level]:.6e})")
+        print(f"  main_legacy level {level}: {n} cells{kept}, one forward call: record launch "
+              f"{t2 - t1:.3f} s, likelihood {t3 - t2:.3f} s; {len(picks)} of {nb} blocks held "
+              f"to the host loop")
+    ind = sampling.index_grid(N[np.argmax(P)][None], refs)
+    best = sampling.param_grid(ind, refs, min_x, max_x, np.asarray(DO_LOG))[0] / uc
+    names = ("p0", "mu_n", "mu_p", "B", "Sf", "Sb", "C_n", "C_p", "tau_n", "tau_p")
+    print("  main_legacy best cell (P " + f"{P.max():.4f}) against the truth: " + ", ".join(
+        f"{nm} {best[i]:.4g}/{LEGACY_TRUTH[i]:.4g}"
+        for nm, i in zip(names, np.flatnonzero(free))))
+    phase("main_legacy", t0, f"grid_refine_bayes on the card: {len(N)} cells at the finest "
+          f"level, {want} record launches ({want - 1} levels and the data), P finite and "
+          f"normalized, likelihood within {worst:.2e} of the host loop's terms (whose "
+          f"magnitudes reach {cancel:.3g} x |lnp|)")
+    return want
+
+
+def device_sampler_phase(seed):
+    """random_grid_device on a CUDA generator at DEVICE_SAMPLER_POINTS x 13
+    over MIN_X/MAX_X: bounds, pinned columns exactly their bound, the mean
+    and variance of log10(x) (log axes) and of x (linear) within
+    DEVICE_SAMPLER_SE standard errors of the uniform law's, and the same
+    draws from the same seed twice."""
+    from bayesian_inference_trpl_tpu_torch.utils.sampling import random_grid_device
+    t0 = time.perf_counter()
+    n = DEVICE_SAMPLER_POINTS
+
+    def draw():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return random_grid_device(gen, MIN_X, MAX_X, DO_LOG, n)
+    X = draw()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if X.device.type != "cuda" or X.shape != (n, 13) or not torch.equal(X, draw()):
+        raise AssertionError(f"device sampler: {X.device} {tuple(X.shape)}, or two draws "
+                             f"from seed {seed} differ")
+    lo = torch.tensor(MIN_X, dtype=X.dtype, device=X.device)
+    hi = torch.tensor(MAX_X, dtype=X.dtype, device=X.device)
+    pinned = lo == hi
+    if not (torch.equal(X[:, pinned], lo[pinned].expand(n, -1))
+            and bool(((X >= lo) & (X <= hi)).all())):
+        raise AssertionError("device sampler: a draw outside the box or a pinned column "
+                             "not its bound")
+    log = torch.tensor(DO_LOG, dtype=torch.bool, device=X.device) & ~pinned
+    lin = ~torch.tensor(DO_LOG, dtype=torch.bool, device=X.device) & ~pinned
+    Y = torch.cat([X[:, log].log10(), X[:, lin]], 1)
+    a = torch.cat([lo[log].log10(), lo[lin]])
+    w = torch.cat([hi[log].log10(), hi[lin]]) - a
+    mean_se = ((Y.mean(0) - (a + w / 2)) / (w / np.sqrt(12 * n))).abs().max()
+    var_se = ((Y.var(0) - w ** 2 / 12) / (w ** 2 * np.sqrt((1 / 80 - 1 / 144) / n))).abs().max()
+    if max(float(mean_se), float(var_se)) > DEVICE_SAMPLER_SE:
+        raise AssertionError(f"device sampler: moments {float(mean_se):.2f} / "
+                             f"{float(var_se):.2f} standard errors off the uniform law's")
+    phase("device_sampler", t0, f"random_grid_device on cuda: {n} x 13 float64 in {ms:.1f} ms "
+          f"(first call); in the box, pinned columns exact, the same draws twice; moments "
+          f"within {float(mean_se):.2f} (mean) and {float(var_se):.2f} (variance) standard "
+          f"errors over {int(log.sum())} log and {int(lin.sum())} linear axes")
 
 
 def corner_gate(paths):

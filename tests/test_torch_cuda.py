@@ -568,3 +568,27 @@ def test_runner_two_entry_mesh_on_one_card(cuda_device, route):
         res.append(dry.run_route(route, make_mesh(mesh), cpd, prob))
         assert hk.launches[mode] - before == 2 * len(mesh)        # 2 chunks of 32
     assert dry.check_route(route, res[0], res[1], 2)
+
+
+def test_legacy_forward_rows_independent_of_batch(cuda_device):
+    """utils/legacy_pipeline.make_trpl_forward on a fused method is one
+    record launch per call, and a sample's PL does not depend on its
+    batch-mates (the kernel decides per sample, C4): a level's blocks may
+    share a launch in grid_refine_bayes without changing its result."""
+    from bayesian_inference_trpl_tpu_torch.utils import legacy_pipeline as lp
+    rng = np.random.default_rng(3)
+    lo = np.array([1e8, 1e14, 1.0, 1.0, 1e-11, 1e0, 1e0, 1e-30, 1e-30, 20.0, 20.0, 1e-1])
+    hi = np.array([1e8, 1e16, 50.0, 50.0, 1e-9, 1e2, 1e2, 1e-28, 1e-28, 1000.0, 2000.0, 1e1])
+    u = rng.uniform(size=(64, 12))
+    X = np.concatenate([(lo + u * (hi - lo)) * physics.UNIT_CONVERSIONS[:12],
+                        np.zeros((64, 1))], 1)
+    sim = SimParams(length=311.0, time=2000.0 * 256 / 80000, L=128, T=256, pl_stride=4,
+                    tol_exp=4.0, max_iters=8, method="fused_horizon")
+    forward = lp.make_trpl_forward(sim, (1e18 / 1e7 ** 3, 100.0), "exp")
+    before = hk.launches["stride_1_record"]
+    whole = forward(X)
+    parts = torch.cat([forward(X[k:k + 16]) for k in range(0, 64, 16)])
+    torch.cuda.synchronize()
+    assert whole.shape == (64, sim.num_pl) and whole.device.type == "cuda"
+    assert hk.launches["stride_1_record"] - before == 5
+    assert torch.equal(whole, parts)
