@@ -13,6 +13,7 @@ then nondimensionalized onto the (dx, dt) grid (reference: pvSimPCR.py:330).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # --- Constants -------------------------------------------------------------
 KB_T = 0.02569257          # k_B * T at 25 C [eV]
@@ -73,7 +74,13 @@ def nondimensionalize(mat_par, dx: float, dt: float):
 
 # --- Secondary (derived) physics parameters --------------------------------
 # cm-based formulas used by posterior post-processing
-# (reference: secondary_parameters.py:9-57).
+# (reference: secondary_parameters.py:9-57).  Each takes numbers, numpy
+# arrays or float64 tensors (on any device; posterior/data.py passes them).
+
+def _float(x):
+    """``x`` as float: a tensor as it is, anything else as a numpy array."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x, dtype=float)
+
 
 def t_rad(B, p0):
     """Radiative lifetime [ns]; B [cm^3/s], p0 [cm^-3]."""
@@ -95,21 +102,21 @@ def LI_tau_eff(B, p0, tau_n, Sf, Sb, CP, thickness, mu):
     D = _diffusivity_nm2_ns(mu)
     tau_surf = thickness / ((Sf + Sb) * 0.01) + thickness ** 2 / (np.pi ** 2 * D)
     return (t_rad(B, p0) ** -1 + t_auger(CP, p0) ** -1
-            + tau_surf ** -1 + np.asarray(tau_n, dtype=float) ** -1) ** -1
+            + tau_surf ** -1 + _float(tau_n) ** -1) ** -1
 
 
 def LI_tau_srh(tau_n, Sf, Sb, thickness, mu):
     """Low-injection SRH+surface lifetime [ns]."""
     D = _diffusivity_nm2_ns(mu)
     tau_surf = thickness / ((Sf + Sb) * 0.01) + thickness ** 2 / (np.pi ** 2 * D)
-    return (tau_surf ** -1 + np.asarray(tau_n, dtype=float) ** -1) ** -1
+    return (tau_surf ** -1 + _float(tau_n) ** -1) ** -1
 
 
 def HI_tau_srh(tau_n, tau_p, Sf, Sb, thickness, mu):
     """High-injection SRH+surface lifetime [ns]."""
     D = _diffusivity_nm2_ns(mu)
     tau_surf = 2 * (thickness / ((Sf + Sb) * 0.01)) + thickness ** 2 / (np.pi ** 2 * D)
-    return (tau_surf ** -1 + (np.asarray(tau_n, dtype=float) + tau_p) ** -1) ** -1
+    return (tau_surf ** -1 + (_float(tau_n) + tau_p) ** -1) ** -1
 
 
 def s_eff(sf, sb):
@@ -117,8 +124,8 @@ def s_eff(sf, sb):
 
 
 def mu_eff(mu_n, mu_p):
-    return 2.0 / (np.asarray(mu_n, dtype=float) ** -1 + np.asarray(mu_p, dtype=float) ** -1)
+    return 2.0 / (_float(mu_n) ** -1 + _float(mu_p) ** -1)
 
 
 def epsilon(lamb):
-    return np.asarray(lamb, dtype=float) ** -1
+    return _float(lamb) ** -1

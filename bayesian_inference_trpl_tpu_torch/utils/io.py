@@ -22,6 +22,8 @@ from typing import Sequence
 
 import numpy as np
 
+from ..native import parse_obs_csv
+
 BVAL_CUTOFF = sys.float_info.min
 
 
@@ -48,55 +50,105 @@ def _finish_curve(next_t, next_pl, next_unc, scale_f, noise_level, normalize,
 def get_data(exp_files: Sequence[str], ic_flags: dict, sim_flags: dict,
              logger=None, scale_f: float = 1e-23, rng=None):
     """Load observation files.  Returns, per file, a tuple
-    (times, values, uncertainties) of per-curve arrays."""
-    early_cut = ic_flags.get("time_cutoff")
-    select = ic_flags.get("select_obs_sets")
-    noise_level = ic_flags.get("noise_level")
-    log_pl = sim_flags.get("log_pl", True)
-    normalize = sim_flags.get("self_normalize", False)
-    if rng is None:
-        rng = np.random.default_rng()
+    (times, values, uncertainties) of per-curve arrays.
 
+    Each file's bytes are scanned by the host C++ parser
+    (native/src/trpl_native.cpp, built at first use; a failed build
+    raises); a file it rejects as not numeric (a quoted field, say) is read
+    row by row with ``csv.reader`` (``_read_rows``).  Curve splitting and
+    preprocessing are the same on both routes, and the arrays bitwise
+    equal: ``strtod`` and ``float()`` both round correctly.
+    """
+    args = _curve_args(ic_flags, sim_flags, scale_f, rng, logger)
     all_data = []
     for exp_file in exp_files:
-        t, pl, unc = [], [], []
-        next_t, next_pl, next_unc = [], [], []
-        with open(exp_file, newline="") as f:
-            for row in csv.reader(f):
-                if not row:
-                    continue
-                eof = row[0] == "END"
-                finished = eof or (float(row[0]) == 0 and len(next_t) > 0)
-                if finished:
-                    curve = _finish_curve(next_t, next_pl, next_unc, scale_f,
-                                          noise_level, normalize, log_pl, rng, logger)
-                    t.append(curve[0])
-                    pl.append(curve[1])
-                    unc.append(curve[2])
-                    next_t, next_pl, next_unc = [], [], []
-                    if logger is not None:
-                        logger.info("PL curve #%d finished reading (%d points)",
-                                    len(t), len(curve[0]))
-                if eof:
-                    break
-                if early_cut is not None and float(row[0]) > early_cut:
-                    continue
-                next_t.append(float(row[0]))
-                next_pl.append(float(row[1]))
-                next_unc.append(float(row[2]))
-        if next_t:  # file without END sentinel: flush trailing curve
-            curve = _finish_curve(next_t, next_pl, next_unc, scale_f,
-                                  noise_level, normalize, log_pl, rng, logger)
-            t.append(curve[0])
-            pl.append(curve[1])
-            unc.append(curve[2])
-        if select is not None:
-            idx = list(select)
-            t = [t[i] for i in idx]
-            pl = [pl[i] for i in idx]
-            unc = [unc[i] for i in idx]
-        all_data.append((t, pl, unc))
+        try:
+            parsed = parse_obs_csv(exp_file)
+        except ValueError:
+            all_data.append(_read_rows(exp_file, *args))
+        else:
+            all_data.append(_package_curves(*parsed, *args))
     return all_data
+
+
+def _curve_args(ic_flags, sim_flags, scale_f=1e-23, rng=None, logger=None):
+    """The preprocessing options of ``_package_curves`` and ``_read_rows``,
+    in their order, from the config's flags."""
+    return (ic_flags.get("time_cutoff"), ic_flags.get("select_obs_sets"),
+            ic_flags.get("noise_level"), sim_flags.get("self_normalize", False),
+            sim_flags.get("log_pl", True), scale_f,
+            np.random.default_rng() if rng is None else rng, logger)
+
+
+def _read_rows(exp_file, early_cut, select, noise_level, normalize, log_pl,
+               scale_f, rng, logger):
+    """One file read row by row with ``csv.reader`` (bayes_io.py:42-98):
+    the route for files the native parser refuses."""
+    t, pl, unc = [], [], []
+    next_t, next_pl, next_unc = [], [], []
+    with open(exp_file, newline="") as f:
+        for row in csv.reader(f):
+            if not row:
+                continue
+            eof = row[0] == "END"
+            finished = eof or (float(row[0]) == 0 and len(next_t) > 0)
+            if finished:
+                curve = _finish_curve(next_t, next_pl, next_unc, scale_f,
+                                      noise_level, normalize, log_pl, rng, logger)
+                t.append(curve[0])
+                pl.append(curve[1])
+                unc.append(curve[2])
+                next_t, next_pl, next_unc = [], [], []
+                if logger is not None:
+                    logger.info("PL curve #%d finished reading (%d points)",
+                                len(t), len(curve[0]))
+            if eof:
+                break
+            if early_cut is not None and float(row[0]) > early_cut:
+                continue
+            next_t.append(float(row[0]))
+            next_pl.append(float(row[1]))
+            next_unc.append(float(row[2]))
+    if next_t:  # file without END sentinel: flush trailing curve
+        curve = _finish_curve(next_t, next_pl, next_unc, scale_f,
+                              noise_level, normalize, log_pl, rng, logger)
+        t.append(curve[0])
+        pl.append(curve[1])
+        unc.append(curve[2])
+    if select is not None:
+        idx = list(select)
+        t = [t[i] for i in idx]
+        pl = [pl[i] for i in idx]
+        unc = [unc[i] for i in idx]
+    return t, pl, unc
+
+
+def _package_curves(t_all, pl_all, unc_all, early_cut, select, noise_level,
+                    normalize, log_pl, scale_f, rng, logger):
+    """Split flat parsed rows into curves at t == 0 and preprocess them as
+    the row-by-row route does (bayes_io.py:42-98 semantics)."""
+    if early_cut is not None:
+        keep = t_all <= early_cut
+        t_all, pl_all, unc_all = t_all[keep], pl_all[keep], unc_all[keep]
+    starts = list(np.flatnonzero(t_all == 0.0))
+    if not starts or starts[0] != 0:
+        starts = [0] + starts
+    starts.append(len(t_all))
+    t, pl, unc = [], [], []
+    for a, b in zip(starts[:-1], starts[1:]):
+        if b <= a:
+            continue
+        curve = _finish_curve(t_all[a:b], pl_all[a:b], unc_all[a:b], scale_f,
+                              noise_level, normalize, log_pl, rng, logger)
+        t.append(curve[0])
+        pl.append(curve[1])
+        unc.append(curve[2])
+    if select is not None:
+        idx = list(select)
+        t = [t[i] for i in idx]
+        pl = [pl[i] for i in idx]
+        unc = [unc[i] for i in idx]
+    return t, pl, unc
 
 
 def get_initpoints(init_file: str, ic_flags: dict, scale_f: float = 1e-21):

@@ -7,9 +7,12 @@ Phases, each printed on its own line with its seconds:
 1. build   -- tools/warmup.main on main's TOML (one chunk of 1,024
               samples per curve), whose first launch builds csrc/*.cu (the
               horizon kernel in 6 parts and the per-step Newton kernel in
-              2, one nvcc each, all in parallel) into one library under
-              build/ (plain C interface, loaded with ctypes); prints every
-              kernel's ptxas registers and spills.
+              2, the histograms in 1, one nvcc each, all in parallel) into
+              one library under build/ (plain C interface, loaded with
+              ctypes); prints every kernel's ptxas registers and spills.  The
+              CLI's first ingest builds the host CSV parser
+              (native/src/trpl_native.cpp, the host C++ compiler) under
+              build/.
 2. compare -- the horizon kernel's chord body against its plain PyTorch
               version (group=1), on the card, on the same inputs: a seeded
               sample box, one curve of the power_scan configuration.  The
@@ -110,6 +113,22 @@ Phases, each printed on its own line with its seconds:
               the JAX package's loop (see LEGACY_PL_STRIDE).
     device_sampler -- utils/sampling.random_grid_device on a CUDA generator
               at 131,072 x 13: bounds, pinning, moments, determinism.
+    compare_hist -- the posterior's weighted histogram kernels
+              (csrc/hist_kernel.cu) against their plain versions on 10^6
+              float64 samples with NaN, +-inf and values on both edges: 1-D
+              at 96 bins (counts equal), 2-D at 96 x 96 (the shared-memory
+              path) and 200 x 200 (the global-memory path), sums within
+              1e-12 relative; each timed beside its plain version and
+              torch.bincount (the index computation included).
+    main_posterior -- posterior/cli.report (--t-factor auto) on main's
+              exported result (32,768 samples) on the card, and the corner
+              plot's marginals at 96 bins (6 1-D and 15 2-D histogram
+              launches), held to the same calls on the CPU; get_data on
+              main's observation file on the native and csv.reader routes,
+              bitwise equal, both timed.
+    timeshift_demo -- tools/timeshift_demo --profile synthetic --batch 8
+              --seed 0 --top 1 on the card: no sample non-converged, the
+              shift grid's shift-0 rms the raw rms.
 12. main_exact -- as 3 on a TOML with no ladder and the geometric
               predictor: exactly one stride-1 launch per chunk and curve.
     main_interp -- as 3 with main_offgrid's observations and
@@ -376,6 +395,27 @@ GATE_ADAPTIVE = ("fused_horizon_chord", True, ADAPTIVE_TAU)
 # Kernel template arguments in ptxas's mangled names: MODE (STRIDE1,
 # STRIDES, OFFGRID) and NEWTON (CHORD, FULL) of csrc/horizon_kernel.cu.
 MODE_ARG = {"stride_1": 0, "stride_s": 1, "offgrid": 2}
+# The posterior's weighted histograms (compare_hist): samples (with NaN,
+# +-inf and values on both edges), the CLI's bins (1-D, and 2-D on the
+# shared-memory path), the 2-D bins of the global-memory path; sums held
+# within HIST_RTOL of the plain version, counts equal.
+HIST_SAMPLES = 1_000_000
+HIST_BINS = 96
+HIST_GLOBAL_BINS = 200
+HIST_RTOL = 1e-12
+# Operations per sample and axis: 2 range compares, subtract, multiply,
+# the 2^63 compare, convert, last-bin compare; plus 1 add per sample.
+HIST_OPS_AXIS = 7
+PEAK_FP64 = 34e12        # H100 SXM, FP64 outside the tensor cores
+# main_posterior: the CLI's report (--t-factor auto) on main's result on the
+# card, held to the same call on the CPU: statistics within
+# POSTERIOR_RTOL, fmin's temperature (and what is taken at it) within
+# POSTERIOR_TF_RTOL (tests/test_torch_posterior_stats.py's tolerances).
+POSTERIOR_RTOL = 1e-12
+POSTERIOR_TF_RTOL = 1e-6
+PINNED = "n0"            # MIN_X[0] == MAX_X[0]
+# timeshift: tools/timeshift_demo on the bundled synthetic b8 s0 cache.
+TIMESHIFT_ARGS = ("--profile", "synthetic", "--batch", "8", "--seed", "0", "--top", "1")
 
 
 def phase(name, t0, msg):
@@ -829,6 +869,11 @@ def main():
     # device sampler
     legacy_launches = legacy_phase(paths)
     device_sampler_phase(args.seed)
+    # the posterior analysis: its histogram kernels, the CLI's report on
+    # main's result with native ingest checked, and timeshift_demo
+    hist = compare_hist(args.seed)
+    hist_launches = main_posterior(paths, n_main, args.seed)
+    timeshift_phase(paths)
     sizes = exact_sizes(time.perf_counter() - t_all, launch_s, record_s)
     paths.run("", "fused_horizon_chord", sizes["main_exact"], {"stride_1": 1}, exact=True)
     paths.run("interp", "fused_horizon_chord", sizes["main_interp"], {"stride_1_record": 1})
@@ -877,7 +922,7 @@ def main():
     print(json.dumps({"kernels": [entry(m) for m in (
         "stride_1", "stride_s", "offgrid", "stride_1_full", "stride_s_full",
         "offgrid_full", "stride_1_exact", "stride_1_record", "stride_1_record_states",
-        "newton_step")]}))
+        "newton_step")] + [dict(r, launches=hist_launches[r["name"]]) for r in hist]}))
     phase("total", t_all, "")
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1587,6 +1632,240 @@ def device_sampler_phase(seed):
           f"errors over {int(log.sum())} log and {int(lin.sum())} linear axes")
 
 
+def hist_inputs(n, seed):
+    """float64 samples x, y in [-0.1, 1.1) around the range [0, 1], with
+    NaN, +-inf and values exactly on both edges; weights in [0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, y, w = (torch.rand(n, generator=g, dtype=torch.float64, device="cuda")
+               for _ in range(3))
+    for v, k in ((x, 0), (y, 5)):
+        v.mul_(1.2).sub_(0.1)
+        v[k::997] = float("nan")
+        v[k + 1::991] = float("inf")
+        v[k + 2::983] = -float("inf")
+        v[k + 3::977] = 0.0
+        v[k + 4::971] = 1.0
+    return x, y, w
+
+
+def compare_hist(seed):
+    """Both histogram kernels against their plain versions on the card at
+    HIST_SAMPLES samples: 1-D at HIST_BINS bins (counts equal, sums within
+    HIST_RTOL), 2-D at HIST_BINS^2 (shared-memory path) and
+    HIST_GLOBAL_BINS^2 (global-memory path), sums within HIST_RTOL; then
+    each timed (CUDA events, 3 launches after a warm-up) at the CLI's bins
+    beside its plain version and torch.bincount with the index computation.
+    Returns the two entries of the kernels line (launches filled in later
+    from main_posterior)."""
+    from bayesian_inference_trpl_tpu_torch.ops import histogram as hg
+    t0 = time.perf_counter()
+    n, nb = HIST_SAMPLES, HIST_BINS
+    x, y, w = hist_inputs(n, seed)
+
+    def rel(a, b):
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+            raise AssertionError("histogram sums: finite patterns differ")
+        err = (a - b).abs()
+        r = float((err / b.abs().clamp_min(1e-300)).max())
+        if r > HIST_RTOL:
+            raise AssertionError(f"histogram sums: rel err {r:.3e} > {HIST_RTOL}")
+        return float(err.max())
+
+    kw, kc = hg.hist1d_weighted(x, w, 0.0, 1.0, nb)
+    pw, pc = hg.hist1d_weighted_plain(x, w, 0.0, 1.0, nb)
+    if not torch.equal(kc, pc):
+        raise AssertionError(f"hist1d counts differ in {int((kc != pc).sum())} bins")
+    kept = int(((x >= 0) & (x <= 1)).sum())
+    if int(kc.sum()) != kept:
+        raise AssertionError(f"hist1d counts {int(kc.sum())} != {kept} samples in range")
+    err1 = rel(kw, pw)
+    err2 = {}
+    for b in (nb, HIST_GLOBAL_BINS):
+        args = (x, y, w, 0.0, 1.0, b, 0.0, 1.0, b)
+        err2[b] = rel(hg.hist2d_weighted(*args), hg.hist2d_weighted_plain(*args))
+    torch.cuda.synchronize()
+    plans = {(1, nb): hg.launch_plan(1, n, nb)}
+    plans.update({(2, b): hg.launch_plan(2, n, b * b) for b in (nb, HIST_GLOBAL_BINS)})
+    for (dims, b), pl in plans.items():
+        print(f"  hist{dims}d {b}{f'x{b}' if dims == 2 else ''} bins at {n:,} samples: "
+              f"{pl['path']} path, {pl['blocks']} blocks of 256 threads, "
+              f"{pl['smem_per_block']} B shared memory per block (opt-in limit "
+              f"{pl['smem_optin']} B)")
+    if plans[2, HIST_GLOBAL_BINS]["path"] != "global" or plans[2, nb]["path"] != "shared":
+        raise AssertionError(f"histogram paths {plans}")
+    print(f"  hist1d {nb} bins: counts equal ({kept:,} of {n:,} samples in range: NaN, "
+          f"+-inf and out-of-range dropped), sums max abs err {err1:.3e}; hist2d "
+          + ", ".join(f"{b}x{b}: sums max abs err {e:.3e}" for b, e in err2.items())
+          + f" (within {HIST_RTOL} relative)")
+
+    def bincount_1d():
+        lo, hi, inv, bins = hg.axis(0.0, 1.0, nb)
+        b, keep = hg.bin_index(x, lo, hi, inv, bins)
+        return torch.bincount(b[keep], weights=w[keep], minlength=bins)
+
+    def bincount_2d():
+        ax, ay = hg.axis(0.0, 1.0, nb), hg.axis(0.0, 1.0, nb)
+        a, keep = hg.bin_index(x, *ax)
+        b, keep_y = hg.bin_index(y, *ay)
+        keep &= keep_y
+        return torch.bincount((a * nb + b)[keep], weights=w[keep], minlength=nb * nb)
+
+    rel(bincount_1d(), pw)
+    rel(bincount_2d().view(nb, nb), hg.hist2d_weighted_plain(x, y, w, 0.0, 1.0, nb,
+                                                             0.0, 1.0, nb))
+    out = []
+    for dims, kernel, plain, library, err in (
+            (1, lambda: hg.hist1d_weighted(x, w, 0.0, 1.0, nb),
+             lambda: hg.hist1d_weighted_plain(x, w, 0.0, 1.0, nb), bincount_1d, err1),
+            (2, lambda: hg.hist2d_weighted(x, y, w, 0.0, 1.0, nb, 0.0, 1.0, nb),
+             lambda: hg.hist2d_weighted_plain(x, y, w, 0.0, 1.0, nb, 0.0, 1.0, nb),
+             bincount_2d, err2[nb])):
+        ms, plain_ms, lib_ms = (cuda_ms(f, 3) for f in (kernel, plain, library))
+        nbytes = n * 8 * (dims + 1) + (nb * 16 if dims == 1 else nb * nb * 8)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = n * (dims * HIST_OPS_AXIS + 1) / PEAK_FP64
+        bound = max(t_bytes, t_ops) * 1e3
+        name = f"hist{dims}d_weighted"
+        print(f"  {name} {nb}{f'x{nb}' if dims == 2 else ''} bins, {n:,} samples: kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms (bytes, {100 * bound / ms:.1f}% of it "
+              f"reached), plain {plain_ms:.4f} ms, torch.bincount {lib_ms:.4f} ms")
+        out.append(dict(name=name, route="cuda",
+                        source="bayesian_inference_trpl_tpu_torch/csrc/hist_kernel.cu",
+                        replaces="bayesian_inference_trpl_tpu/native/src/trpl_native.cpp:"
+                                 + ("97" if dims == 1 else "142"),
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        library_ms=lib_ms))
+    phase("compare_hist", t0, "histogram kernels vs plain on the card; timed with "
+          "CUDA events")
+    return out
+
+
+def main_posterior(paths, n_main, seed):
+    """The port's posterior CLI's headless report (--t-factor auto) on
+    main's exported BAYRAN pair on the card, then every marginal of its
+    corner plot (plotting.corner_marginals: k 1-D, k(k-1)/2 2-D at the
+    CLI's 96 bins) and of the pinned PINNED beside them (an empty range:
+    k + 1 marginals on the card that launch no kernel), the histogram
+    launches counted; all held to the same calls on the CPU.  Also get_data on main's observation file: native
+    and csv.reader routes bitwise equal, both timed.  Returns the
+    histogram launches."""
+    from bayesian_inference_trpl_tpu_torch import native
+    from bayesian_inference_trpl_tpu_torch.config import load_config
+    from bayesian_inference_trpl_tpu_torch.posterior import cli, plotting
+    t0 = time.perf_counter()
+    P, X = paths.results["main"]
+    with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tmp:
+        cfg = load_config(write_main_inputs(tmp, n_main, seed))
+        flags = (cfg.ic_flags.as_dict(), cfg.sim_flags.as_dict())
+        obs = cfg.paths.observation_files
+        native.load()       # built by the first CLI run's ingest; timed below: parsing
+        bio = paths.bio
+        t1 = time.perf_counter()
+        nat = bio.get_data(obs, *flags, rng=np.random.default_rng(seed))
+        t2 = time.perf_counter()
+        args = bio._curve_args(*flags, rng=np.random.default_rng(seed))
+        rows = [bio._read_rows(f, *args) for f in obs]
+        t3 = time.perf_counter()
+        for f_nat, f_row in zip(nat, rows):
+            for c_nat, c_row in zip(f_nat, f_row):
+                if len(c_nat) != len(c_row) or not all(
+                        a.tobytes() == b.tobytes() for a, b in zip(c_nat, c_row)):
+                    raise AssertionError("get_data: native and csv.reader routes differ")
+        print(f"  get_data on main's observations ({os.path.getsize(obs[0]):,} B, "
+              f"{len(nat[0][0])} curves): native {t2 - t1:.3f} s, csv.reader "
+              f"{t3 - t2:.3f} s, bitwise equal")
+        out = os.path.join(tmp, "main")
+        bio.export(out, P, X)
+        reps, margs, walls = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            if dev == "cuda":
+                paths.zero()
+            t1 = time.perf_counter()
+            rep = cli.report(out, device=dev)
+            margs[dev] = plotting.corner_marginals(rep.data, rep.params + [PINNED],
+                                                   rep.viz.do_log, bins=96)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = paths.launches()
+            walls[dev] = time.perf_counter() - t1
+            reps[dev] = rep
+    k = len(reps["cuda"].params)
+    want = {"hist1d_weighted": k, "hist2d_weighted": k * (k - 1) // 2}
+    got = {name: v for name, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"main_posterior launched {got}, expected {want}")
+    a, b = reps["cuda"].summary, reps["cpu"].summary
+    # P (and all taken from it) is the same function of the data on both
+    # devices where the temperature applied is the same, bitwise.
+    rtol = POSTERIOR_RTOL if a["temperature"] == b["temperature"] else POSTERIOR_TF_RTOL
+
+    def check(name, u, v, tol):
+        u, v = np.asarray(u, dtype=float), np.asarray(v, dtype=float)
+        if not np.allclose(u, v, rtol=tol, atol=0, equal_nan=True):
+            raise AssertionError(f"main_posterior: {name} on cuda {u} vs cpu {v} "
+                                 f"(rtol {tol})")
+    if a["num_samples"] != b["num_samples"]:
+        raise AssertionError("main_posterior: sample counts differ")
+    for key in ("temperature", "temperature_max_uncertainty"):
+        check(key, a[key], b[key], POSTERIOR_TF_RTOL)
+    for p in b["stats"]:
+        check(f"{p} mean, std", list(a["stats"][p].values()), list(b["stats"][p].values()),
+              rtol)
+        check(f"{p} 95% interval", a["credible_95"][p], b["credible_95"][p], rtol)
+    (_, d1, d2), (_, c1, c2) = margs["cuda"], margs["cpu"]
+    worst = 0.0
+    for got_m, ref_m in [(d1[p], c1[p]) for p in c1] + [(d2[q], c2[q]) for q in c2]:
+        for u, v in zip(got_m, ref_m):
+            u, v = u.cpu().numpy(), v.numpy()
+            check("marginal", u, v, rtol)
+            fin = np.isfinite(v) & (v != 0)
+            if fin.any():
+                worst = max(worst, float(np.max(np.abs(u - v)[fin] / np.abs(v[fin]))))
+    pinned = d1[PINNED][0]
+    if pinned.device.type != "cuda" or not bool(torch.isinf(pinned).any()):
+        raise AssertionError(f"main_posterior: {PINNED}'s marginal is not an empty range's "
+                             f"on the card: {pinned}")
+    phase("main_posterior", t0, f"cli.report (--t-factor auto) on main's {len(P):,} samples: "
+          f"cuda {walls['cuda']:.2f} s, cpu {walls['cpu']:.2f} s (each with the corner "
+          f"plot's {k} + {k * (k - 1) // 2} marginals at 96 bins, and pinned {PINNED}'s "
+          f"{k + 1}); ESS {a['ess']}, "
+          f"temperature {a['temperature']:.6g} (max-uncertainty {a['temperature_max_uncertainty']:.6g}); "
+          f"cuda vs cpu: statistics within {rtol}, marginals max rel {worst:.3e}; "
+          f"launches {got}")
+    return {name: launches[name] for name in want}
+
+
+def timeshift_phase(paths):
+    """tools/timeshift_demo.main (TIMESHIFT_ARGS) on the card: no sample
+    non-converged, and the shift grid's shift-0 entry the sample's raw rms
+    within float32 rounding; two scoring solves of the ladder (the gate's
+    8 samples, then the shift grid of the worst)."""
+    from bayesian_inference_trpl_tpu_torch.tools import accuracy_gate, timeshift_demo
+    t0 = time.perf_counter()
+    if not accuracy_gate.bundled_cache(POWER_SCAN["T"], 8, 0, "synthetic").exists():
+        raise FileNotFoundError("timeshift_demo: the b8 s0 exact cache is missing")
+    paths.zero()
+    res = timeshift_demo.main([*TIMESHIFT_ARGS, "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = {k: v for k, v in paths.launches().items() if v}
+    rungs = len(ladder_schedule(False)[1]) - 1
+    want = {"stride_1": 2, "stride_s": 2 * rungs}
+    if got != want:
+        raise AssertionError(f"timeshift_demo launched {got}, expected {want}")
+    if res["non_converged"]:
+        raise AssertionError(f"timeshift_demo: {res['non_converged']} samples non-converged")
+    zero = res["deltas"].index(0.0)
+    (w,) = res["worst"]
+    at0 = res["rms_by_shift"][w["sample"]][zero]
+    if abs(at0 - w["raw_rms"]) > 2.0 ** -22 * w["raw_rms"]:
+        raise AssertionError(f"timeshift_demo: rms at shift 0 {at0!r} != raw rms "
+                             f"{w['raw_rms']!r}")
+    phase("timeshift_demo", t0, f"synthetic b8 s0 on cuda: sample {w['sample']} raw rms "
+          f"{w['raw_rms']:.4e}, at shift 0 {at0:.4e}, best {w['best_shift_steps']:+.2f} steps "
+          f"-> {w['aligned_rms']:.4e}; non-converged 0; launches {got}")
+
+
 def corner_gate(paths):
     """The corner gate (tests/test_corner_gate.py's two tests, their
     bounds): the port's run_sweep.run_solver with fused_horizon in float64
@@ -2203,11 +2482,14 @@ class MainPaths:
         self.results, self.configs = {}, {}
 
     def launches(self):
-        return dict(self.hk.launches, newton_step=self.nk.launches)
+        from bayesian_inference_trpl_tpu_torch.ops import histogram
+        return dict(self.hk.launches, newton_step=self.nk.launches, **histogram.launches)
 
     def zero(self):
-        for k in self.hk.launches:
-            self.hk.launches[k] = 0
+        from bayesian_inference_trpl_tpu_torch.ops import histogram
+        for d in (self.hk.launches, histogram.launches):
+            for k in d:
+                d[k] = 0
         self.nk.launches = 0
 
     def cli(self, cfg_path, tmp, *extra):

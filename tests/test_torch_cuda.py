@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-horizon kernel (chord and full Newton, every mode) and the per-step Newton
-kernel.
+horizon kernel (chord and full Newton, every mode), the per-step Newton
+kernel and the weighted histograms (with the posterior on the card against
+the CPU).
 
 Needs an NVIDIA GPU and skips without one.  The file imports neither JAX
 nor the JAX package, so it also runs where JAX is absent:
@@ -592,3 +593,158 @@ def test_legacy_forward_rows_independent_of_batch(cuda_device):
     assert whole.shape == (64, sim.num_pl) and whole.device.type == "cuda"
     assert hk.launches["stride_1_record"] - before == 5
     assert torch.equal(whole, parts)
+
+
+def _hist_samples(n, lo, hi, seed):
+    """float64 samples with NaN, +-inf, both edges and values just outside."""
+    g = torch.Generator().manual_seed(seed)
+    x = lo - 0.5 * (hi - lo) + 2.0 * (hi - lo) * torch.rand(n, generator=g, dtype=torch.float64)
+    x[::50] = float("nan")
+    x[1::70] = float("inf")
+    x[2::90] = -float("inf")
+    x[3::30] = lo
+    x[4::40] = hi
+    x[5::60] = np.nextafter(hi, np.inf)
+    x[6::80] = np.nextafter(lo, -np.inf)
+    return x
+
+
+def _hist_close(a, b):
+    """Sums of positive weights: within 1e-12 relative (the kernel's atomics
+    add in another order)."""
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float64
+    assert bool(((a - b).abs() <= 1e-12 * b.abs()).all())
+
+
+@pytest.mark.parametrize("n,bins", [(1_000_003, 96), (4097, 1), (50_000, 20_000)])
+def test_hist1d_kernel_matches_plain(cuda_device, n, bins):
+    """Counts equal and sums within 1e-12 of the plain version; 20,000 bins
+    (320 KB) take the global-memory path."""
+    from bayesian_inference_trpl_tpu_torch.ops import histogram
+    x = _hist_samples(n, -1.0, 3.0, bins).to(cuda_device)
+    w = torch.rand(n, dtype=torch.float64, device=cuda_device)
+    before = histogram.launches["hist1d_weighted"]
+    kw, kc = histogram.hist1d_weighted(x, w, -1.0, 3.0, bins)
+    pw, pc = histogram.hist1d_weighted_plain(x, w, -1.0, 3.0, bins)
+    torch.cuda.synchronize()
+    assert histogram.launches["hist1d_weighted"] - before == 1
+    assert torch.equal(kc, pc) and int(kc.sum()) == int(((x >= -1) & (x <= 3)).sum())
+    _hist_close(kw, pw)
+    plan = histogram.launch_plan(1, n, bins)
+    assert plan["path"] == ("global" if bins * 16 > plan["smem_optin"] else "shared")
+
+
+@pytest.mark.parametrize("bx,by", [(96, 96), (200, 200), (1, 7)])
+def test_hist2d_kernel_matches_plain(cuda_device, bx, by):
+    """96 x 96 (72 KB) on the shared path, 200 x 200 (313 KB) on the
+    global one; with unit weights the sums are counts, equal exactly."""
+    from bayesian_inference_trpl_tpu_torch.ops import histogram
+    n = 1_000_000
+    x = _hist_samples(n, 0.0, 1.0, bx).to(cuda_device)
+    y = _hist_samples(n, -1e-9, 1e-9, by + 1).to(cuda_device)
+    w = torch.rand(n, dtype=torch.float64, device=cuda_device)
+    args = (0.0, 1.0, bx, -1e-9, 1e-9, by)
+    k = histogram.hist2d_weighted(x, y, w, *args)
+    _hist_close(k, histogram.hist2d_weighted_plain(x, y, w, *args))
+    ones = torch.ones_like(w)
+    assert torch.equal(histogram.hist2d_weighted(x, y, ones, *args),
+                       histogram.hist2d_weighted_plain(x, y, ones, *args))
+    plan = histogram.launch_plan(2, n, bx * by)
+    assert plan["path"] == ("shared" if bx * by <= 96 * 96 else "global")
+
+
+def test_hist_kernel_refuses_bad_inputs(cuda_device):
+    from bayesian_inference_trpl_tpu_torch.ops import histogram
+    x = torch.zeros(8, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="float64"):
+        histogram.hist1d_weighted(x.float(), x, 0.0, 1.0, 4)
+    with pytest.raises(ValueError, match="expected float64"):
+        histogram.hist2d_weighted(x, x[:4], x, 0.0, 1.0, 4, 0.0, 1.0, 4)
+    out_w, out_c = histogram.hist1d_weighted(x[:0], x[:0], 0.0, 1.0, 4)
+    assert int(out_c.sum()) == 0 and float(out_w.sum()) == 0.0
+
+
+def test_posterior_on_card_matches_cpu(cuda_device, tmp_path):
+    """PosteriorData and the CLI's report on cuda against cpu: the
+    statistics within 1e-12 relative (1e-6 after fmin's temperature), the
+    marginals within 1e-12, each marginal one kernel launch."""
+    from bayesian_inference_trpl_tpu_torch.ops import histogram
+    from bayesian_inference_trpl_tpu_torch.posterior import PosteriorData, cli
+    from bayesian_inference_trpl_tpu_torch.utils.io import export
+    rng = np.random.default_rng(7)
+    n = 4000
+    lo = np.array([1e8, 1e14, 0.0, 0.0, 1e-11, 0.1, 0.1, 1e-29, 1e-29, 1.0, 1.0, 0.1, 0.0])
+    hi = np.array([1e8, 1e16, 50.0, 50.0, 1e-9, 100.0, 100.0, 1e-29, 1e-29, 1000.0, 2000.0,
+                   0.1, 0.0])
+    X = lo + rng.uniform(size=(n, 13)) * (hi - lo)
+    LL = -((X[:, 9] - 500.0) / 50.0) ** 2
+    LL[:3] = np.nan
+    export(str(tmp_path / "run"), LL, X)
+    reps = {d: cli.report(str(tmp_path / "run"), device=d) for d in ("cuda", "cpu")}
+    a, b = reps["cuda"].summary, reps["cpu"].summary
+    assert a["num_samples"] == b["num_samples"] == n - 3
+    np.testing.assert_allclose(a["temperature"], b["temperature"], rtol=1e-6)
+    for p in b["stats"]:
+        np.testing.assert_allclose(list(a["stats"][p].values()),
+                                   list(b["stats"][p].values()), rtol=1e-6)
+    d = {dev: PosteriorData.from_arrays(LL, X, device=dev).compute_secondary()
+         .normalize_temperature(b["temperature"]) for dev in ("cuda", "cpu")}
+    before = dict(histogram.launches)
+    for p, log in (("p0", True), ("tau_n", False), ("tau_eff", True)):
+        for u, v in zip(d["cuda"].marginal_1d(p, log=log), d["cpu"].marginal_1d(p, log=log)):
+            np.testing.assert_allclose(u.cpu().numpy(), v.numpy(), rtol=1e-12, atol=0)
+    for u, v in zip(d["cuda"].marginal_2d("p0", "B", log_x=True, log_y=True),
+                    d["cpu"].marginal_2d("p0", "B", log_x=True, log_y=True)):
+        np.testing.assert_allclose(u.cpu().numpy(), v.numpy(), rtol=1e-12, atol=0)
+    assert histogram.launches["hist1d_weighted"] - before["hist1d_weighted"] == 3
+    assert histogram.launches["hist2d_weighted"] - before["hist2d_weighted"] == 1
+    st, sc = d["cuda"].stats_summary(), d["cpu"].stats_summary()
+    for p in ("p0", "B", "tau_n", "tau_eff"):
+        np.testing.assert_allclose(st[p], sc[p], rtol=1e-12)
+
+
+def test_pinned_marginals_on_card_match_cpu(cuda_device):
+    """A pinned parameter (n0 constant, so its range is empty) and a NaN
+    bound: the marginals stay on the card, launch no histogram kernel,
+    and equal the CPU's, inf and NaN in the same bins."""
+    from bayesian_inference_trpl_tpu_torch.ops import histogram
+    from bayesian_inference_trpl_tpu_torch.posterior import PosteriorData, plotting
+    rng = np.random.default_rng(3)
+    n = 20_000
+    X = rng.uniform(1.0, 2.0, size=(n, 13))
+    X[:, 0] = 1e8
+    LL = -((X[:, 9] - 1.5) / 0.1) ** 2
+    d = {dev: PosteriorData.from_arrays(LL, X, device=dev).normalize()
+         for dev in ("cuda", "cpu")}
+
+    def same(u, v):
+        assert u.device.type == "cuda" and u.shape == v.shape
+        u = u.cpu()
+        assert torch.equal(torch.isnan(u), torch.isnan(v))
+        assert torch.equal(u[torch.isinf(v)], v[torch.isinf(v)])
+        fin = torch.isfinite(v)
+        assert bool(((u[fin] - v[fin]).abs() <= 1e-12 * v[fin].abs()).all())
+
+    before = dict(histogram.launches)
+    outs = {dev: [d[dev].marginal_1d("n0", bins=96),
+                  d[dev].marginal_1d("n0", bins=96, bounds=(1e8, 1e8)),
+                  d[dev].marginal_1d("p0", bins=96, bounds=(1.5, 1.5)),
+                  d[dev].marginal_1d("p0", bins=96, bounds=(float("nan"), 2.0)),
+                  d[dev].marginal_2d("n0", "tau_n", bins=96),
+                  d[dev].marginal_2d("tau_n", "n0", bins=96)] for dev in ("cuda", "cpu")}
+    assert histogram.launches == before
+    assert bool(torch.isinf(outs["cuda"][0][0]).any())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        for u, v in zip(a, b):
+            same(u, v)
+    params = ["n0", "p0", "tau_n"]
+    tc, dc, pc = plotting.corner_marginals(d["cuda"], params, bins=64)
+    _, dh, ph = plotting.corner_marginals(d["cpu"], params, bins=64)
+    assert histogram.launches["hist1d_weighted"] - before["hist1d_weighted"] == 2
+    assert histogram.launches["hist2d_weighted"] - before["hist2d_weighted"] == 1
+    for p in params:
+        for u, v in zip(dc[p], dh[p]):
+            same(u, v)
+    for k in ph:
+        for u, v in zip(pc[k], ph[k]):
+            same(u, v)

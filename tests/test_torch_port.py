@@ -26,8 +26,9 @@ def test_port_imports_without_jax():
     entry None makes ``import jax`` raise)."""
     mods = sorted(
         "bayesian_inference_trpl_tpu_torch."
-        + str(p.relative_to(PORT).with_suffix("")).replace(os.sep, ".")
-        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+        + str((p.parent if p.name == "__init__.py" else p.with_suffix(""))
+              .relative_to(PORT)).replace(os.sep, ".")
+        for p in PORT.rglob("*.py") if p.parent != PORT or p.name != "__init__.py")
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"
@@ -43,7 +44,9 @@ def test_port_imports_without_jax():
         "ops.kernel_lib", "ops.newton_kernel", "tools.accuracy_gate",
         "tools.posterior_equivalence", "models.oracle", "tools.sweep", "tools.run_sweep",
         "tools.compare", "tools.overlay", "tools.corner_cache",
-        "tools.nonconverged")} <= set(mods)
+        "tools.nonconverged", "native", "ops.histogram", "posterior", "posterior.stats",
+        "posterior.data", "posterior.vizconfig", "posterior.plotting", "posterior.cli",
+        "posterior.explorer", "tools.timeshift_demo")} <= set(mods)
 
 
 def test_port_sources_name_no_jax():
@@ -53,6 +56,17 @@ def test_port_sources_name_no_jax():
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad
+    # The host parser's loader builds the port's own copy of the C++ source
+    # (native/src/trpl_native.cpp) and names no path of the JAX package;
+    # no C++ or CUDA source of the port includes a file of it.
+    loader = PORT / "native" / "__init__.py"
+    assert (PORT / "native" / "src" / "trpl_native.cpp").exists()
+    assert '"src" / "trpl_native.cpp"' in loader.read_text()
+    assert not re.search(r"bayesian_inference_trpl_tpu(?!_torch)", loader.read_text())
+    include = re.compile(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', re.M)
+    for src in [*PORT.rglob("*.cpp"), *PORT.rglob("*.cu"), *PORT.rglob("*.cuh")]:
+        for name in include.findall(src.read_text()):
+            assert "bayesian_inference_trpl_tpu/" not in name and ".." not in name, (src, name)
 
 
 def test_make_grid_bitwise_equal_to_jax():
