@@ -24,7 +24,8 @@
 // a few microseconds at the power_scan chunk; a launch is one BDF step, so
 // the host loop around it (history sums, predictor, likelihood: tens of
 // small PyTorch operations per step) and the launch latency bound the
-// path, not the kernel.  A CUDA graph over the step is for later work.
+// path, not the kernel; models/step_graph.py captures the step (history
+// sums, predictor, this launch, the likelihood) as one CUDA graph.
 
 #include "trpl_newton.cuh"
 
@@ -104,14 +105,23 @@ int step_entry(const void* mat, const void* n, const void* p, const void* bn,
   const int spb = samples_per_block(sample);
   const size_t bytes = sample * spb;
   auto kernel = step_kernel_for<T>(L);
+  kernel<<<(batch + spb - 1) / spb, 32 * spb, bytes, (cudaStream_t)stream>>>(a, spb, sample);
+  return (int)cudaGetLastError();
+}
+
+// The kernel's attributes at width L: its opt-in shared memory and the
+// carveout.  Set once per width and card (ops/newton_kernel._prepare),
+// before any launch or capture: the launch sets none, so that a step loop
+// captured as a CUDA graph holds the launch alone.
+template <typename T> int step_prepare(int L) {
+  const size_t sample = step_sample_bytes<T>(L);
+  const size_t bytes = sample * samples_per_block(sample);
+  auto kernel = step_kernel_for<T>(L);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(batch + spb - 1) / spb, 32 * spb, bytes, (cudaStream_t)stream>>>(a, spb, sample);
-  return (int)cudaGetLastError();
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
 }
 
 template <typename T> int step_layout(int L, int* out) {
@@ -129,6 +139,8 @@ template <typename T> int step_layout(int L, int* out) {
 // Plain C interface, loaded with ctypes by ops/newton_kernel.py: one
 // launcher per dtype.  Each returns the launch's cudaError_t (0 on
 // success); the kernel runs on the given stream and does not synchronise.
+// ``..._prepare`` sets the kernel's attributes at width L, which every
+// launch at that width needs first.
 // Beside each, ``..._layout`` fills 7 ints with the launch layout at width
 // L (see query_layout in trpl_newton.cuh).
 #define TRPL_STEP_ARGS                                                           \
@@ -150,10 +162,12 @@ extern "C" int trpl_newton_step_f32(TRPL_STEP_ARGS) {
   return step_entry<float>(TRPL_STEP_CALL);
 }
 extern "C" int trpl_newton_step_f32_layout(int L, int* out) { return step_layout<float>(L, out); }
+extern "C" int trpl_newton_step_f32_prepare(int L) { return step_prepare<float>(L); }
 #endif
 #if !defined(TRPL_PART) || TRPL_PART == 1
 extern "C" int trpl_newton_step_f64(TRPL_STEP_ARGS) {
   return step_entry<double>(TRPL_STEP_CALL);
 }
 extern "C" int trpl_newton_step_f64_layout(int L, int* out) { return step_layout<double>(L, out); }
+extern "C" int trpl_newton_step_f64_prepare(int L) { return step_prepare<double>(L); }
 #endif

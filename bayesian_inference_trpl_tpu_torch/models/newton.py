@@ -19,6 +19,7 @@ import torch
 
 from ..ops.block_tridiag import block_pcr_solve
 from ..ops.tridiag import shift_left, shift_right
+from .step_graph import eager_loop
 from .trpl import (MatParams, SKIP_ACCEPT_FACTOR, STEP_TOL_RESIDUAL_GUARD,
                    _add_col, _col, _onehot, _zero_col0, update_e)
 
@@ -173,50 +174,87 @@ def residuals_and_jacobian(Nk, Pk, bN, bP, bE, mp: MatParams, a0):
     return (F_N, F_P), (A, B, C)
 
 
-def coupled_newton_step(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol,
-                        max_iters: int, step_tol=0.0):
-    """Advance one BDF step by check-then-solve exact Newton.
+class CoupledNewtonLoop:
+    """Check-then-solve exact Newton of one BDF step, in place on buffers
+    that live across steps (so that models/step_graph.py can replay its
+    iterations): ``Nk``/``Pk`` hold the iterate, and the caller writes the
+    step's predicted iterate into them and calls :meth:`reset` before the
+    first iteration.  The history sums and a0 are read from the tensors
+    given here, which the caller also rewrites in place every step.
 
-    Each iteration first evaluates the cheap residual.  A sample is frozen
-    without an update when its residual is SKIP_ACCEPT_FACTOR below tol;
-    one that merely passes tol gets a final polish update first.  While any
-    sample still needs work the exact Jacobian is assembled and solved.
-    ``step_tol`` adds state-settled acceptance (max|dX| <= step_tol*max|X|
-    with the residual within STEP_TOL_RESIDUAL_GUARD x tol); 0 disables.
-
-    Returns (N, P, E, iters, converged), iters the (batch,) count of Newton
-    updates applied.
+    Iteration i < max_iters first evaluates the cheap residual.  A sample
+    is frozen without an update when its residual is SKIP_ACCEPT_FACTOR
+    below tol; one that merely passes tol gets a final polish update
+    first.  The exact Jacobian is assembled and solved for the batch, and
+    only the samples not done take the update.  ``step_tol`` adds
+    state-settled acceptance (max|dX| <= step_tol*max|X| with the residual
+    within STEP_TOL_RESIDUAL_GUARD x tol); 0 disables.  Iteration
+    max_iters is the final acceptance check, with no solve.
     """
-    batch = Nk0.shape[0]
-    dev = Nk0.device
-    Nk, Pk = Nk0, Pk0
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
-    its = torch.zeros(batch, dtype=torch.int32, device=dev)
-    it = 0
-    # max_iters solves + the final acceptance check.
-    while it < max_iters + 1 and not bool(done.all()):
-        (F_N, F_P), (err_n, err_p) = residuals_and_errors(
-            Nk, Pk, bN, bP, bE, mp, a0)
+
+    def __init__(self, Nk, Pk, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
+                 step_tol=0.0):
+        self.Nk, self.Pk = Nk, Pk
+        self.bN, self.bP, self.bE, self.mp, self.a0 = bN, bP, bE, mp, a0
+        self.tol, self.step_tol = tol, step_tol
+        self.max_iters = max_iters
+        self.limit = max_iters + 1       # max_iters solves + the final check
+        batch = Nk.shape[0]
+        self.done = torch.zeros(batch, dtype=torch.bool, device=Nk.device)
+        self.its = torch.zeros(batch, dtype=torch.int32, device=Nk.device)
+
+    def reset(self):
+        self.done.zero_()
+        self.its.zero_()
+
+    def variant(self, i: int) -> bool:
+        """Whether iteration i is the final check."""
+        return i >= self.max_iters
+
+    def all_done(self) -> torch.Tensor:
+        return self.done.all()
+
+    def iterate(self, final: bool, masked: bool = False):
+        """One iteration.  Unmasked, it skips the Jacobian once every
+        sample is done (a host read); masked, it solves regardless, which
+        changes nothing then."""
+        Nk, Pk, bN, bP, bE, mp, a0 = (self.Nk, self.Pk, self.bN, self.bP, self.bE,
+                                      self.mp, self.a0)
+        tol, step_tol = self.tol, self.step_tol
+        (F_N, F_P), (err_n, err_p) = residuals_and_errors(Nk, Pk, bN, bP, bE, mp, a0)
         ok_res = (err_n < tol) & (err_p < tol)
         skip = (err_n < tol * SKIP_ACCEPT_FACTOR) & \
                (err_p < tol * SKIP_ACCEPT_FACTOR)
-        final = it >= max_iters
-        done = done | skip | (ok_res & final)
+        done = self.done | skip | (ok_res & final)
         polish = ok_res & ~done
-        if not (final or bool(done.all())):
+        if not (final or (not masked and bool(done.all()))):
             _, (A, B, C) = residuals_and_jacobian(Nk, Pk, bN, bP, bE, mp, a0)
             dN, dP = block_pcr_solve(A, B, C, (-F_N, -F_P))
             # Positivity projection: an update that would wipe out > 95% of
             # a cell's density (or turn it negative) is clamped.
             upd = (~done)[:, None]
-            Nk = torch.where(upd, torch.maximum(Nk + dN, 0.05 * Nk), Nk)
-            Pk = torch.where(upd, torch.maximum(Pk + dP, 0.05 * Pk), Pk)
-            its = its + upd[:, 0].to(torch.int32)
+            Nk.copy_(torch.where(upd, torch.maximum(Nk + dN, 0.05 * Nk), Nk))
+            Pk.copy_(torch.where(upd, torch.maximum(Pk + dP, 0.05 * Pk), Pk))
+            self.its.add_(upd[:, 0].to(torch.int32))
             ok_step = ((dN.abs().amax(-1) <= step_tol * Nk.abs().amax(-1))
                        & (dP.abs().amax(-1) <= step_tol * Pk.abs().amax(-1))
                        & (err_n < tol * STEP_TOL_RESIDUAL_GUARD)
                        & (err_p < tol * STEP_TOL_RESIDUAL_GUARD))
             done = done | polish | ok_step
-        it += 1
-    Ek = update_e(Nk, Pk, bE, mp, a0)
-    return Nk, Pk, Ek, its, done
+        self.done.copy_(done)
+
+
+def coupled_newton_step(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol,
+                        max_iters: int, step_tol=0.0):
+    """Advance one BDF step by check-then-solve exact Newton
+    (:class:`CoupledNewtonLoop`), its exit tested on the host before each
+    iteration (models/step_graph.py's eager route).
+
+    Returns (N, P, E, iters, converged), iters the (batch,) count of Newton
+    updates applied.
+    """
+    loop = CoupledNewtonLoop(Nk0.clone(), Pk0.clone(), bN, bP, bE, mp, a0, tol,
+                             max_iters, step_tol)
+    eager_loop(loop)
+    Ek = update_e(loop.Nk, loop.Pk, bE, mp, a0)
+    return loop.Nk, loop.Pk, Ek, loop.its, loop.done

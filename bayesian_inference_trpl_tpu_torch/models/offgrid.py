@@ -28,8 +28,9 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from .solver import (HISTORY, FusedObs, SolveResult, SolverConfig, _log_pl,
-                     _scalar, bdf_step, init_history, pl_observable)
+from .solver import (HISTORY, BdfStepper, FusedObs, SolveResult, SolverConfig,
+                     _log_pl, _scalar, bdf_step, init_history, pl_observable)
+from .step_graph import StepRunner
 from .trpl import MatParams
 from .twophase import Schedule, _validate_schedule, rescale_dt
 
@@ -179,21 +180,29 @@ def _phase_offgrid(mat_nd, n0, p0, e0, cfg: SolverConfig, obs_meta: FusedObs,
     lp_win = torch.zeros((4,) + pl0.shape, dtype=n0.dtype, device=n0.device)
     lp_win[3] = _log_pl(pl_observable(n0, p0, mp), obs_c, pl0_c)
 
-    conv, max_it, samp_it, sse, esum = acc
-    for c in range(C):
-        Nn, Pn, _, iters, ok = bdf_step(c, nh, ph, eh, mp, cfg, tol, step_tol)
+    conv, max_it, samp_it, sse, esum = (x.clone() for x in acc)
+    col = torch.zeros(1, dtype=torch.long, device=n0.device)   # the step
+
+    def update(Nn, Pn, En, iters, ok):
         lp_new = _log_pl(pl_observable(Nn, Pn, mp), obs_c, pl0_c)
-        lp_win = torch.cat([lp_win[1:], lp_new[None]], 0)
+        lp_win.copy_(torch.cat([lp_win[1:], lp_new[None]], 0))
         # Broadcast multiply-sum over the window (the JAX package's
         # summation, not a matmul).
-        lp_at = (W_all[c][:, :, :, None] * lp_win[None, None]).sum(2)  # (E, K, batch)
-        err = lp_at - V_all[c][:, :, None]
-        m = M_all[c][:, :, None]
-        sse = sse + (m * err * err).sum(1)
-        esum = esum + (m * err).sum(1)
-        conv = conv & (ok | ~live[c])
-        max_it = torch.maximum(max_it, iters.max())
-        samp_it = samp_it + iters
+        W = W_all.index_select(0, col)[0]
+        lp_at = (W[:, :, :, None] * lp_win[None, None]).sum(2)    # (E, K, batch)
+        err = lp_at - V_all.index_select(0, col)[0][:, :, None]
+        m = M_all.index_select(0, col)[0][:, :, None]
+        sse.add_((m * err * err).sum(1))
+        esum.add_((m * err).sum(1))
+        conv.logical_and_(ok | ~live.index_select(0, col))
+        torch.maximum(max_it, iters.max(), out=max_it)
+        samp_it.add_(iters)
+        col.add_(1)
+
+    stepper = BdfStepper(nh, ph, eh, mp, cfg, tol, step_tol, StepRunner(n0.device),
+                         eager_step=bdf_step)
+    for c in range(C):
+        stepper.step(c, update)
     k_final = C % HISTORY
     return nh[k_final], ph[k_final], eh[k_final], (conv, max_it, samp_it, sse, esum)
 

@@ -14,6 +14,9 @@ one launch of the per-step Newton kernel per step (ops/newton_kernel.py).
 ``method="gauss_seidel"`` (the default, as in the JAX package) is the
 reference's scheme, plain PyTorch in the same step loop:
 models/trpl.implicit_step, N then P by tridiagonal PCR and E explicit.
+On CUDA tensors the step loop runs as CUDA graphs, its Newton loops'
+exit tests lagged one iteration (:class:`BdfStepper`,
+models/step_graph.py), as the JAX package runs it as one XLA scan.
 
 The likelihood is fused into the time loop: the loop carries running sums
 of the log-residual and its square, and the sampled ``mag_offset`` enters
@@ -24,11 +27,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..ops.newton_kernel import newton_step
-from .newton import coupled_newton_step
-from .trpl import BDF_TABLE, HISTORY, MatParams, implicit_step
+from ..ops.newton_kernel import newton_step, step_launcher
+from .newton import CoupledNewtonLoop, coupled_newton_step
+from .step_graph import StepRunner, step_class
+from .trpl import (BDF_TABLE, HISTORY, GaussSeidelLoop, MatParams, implicit_step,
+                   onehot_rows, update_e)
 
 
 class SolverConfig(NamedTuple):
@@ -116,31 +122,47 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
+def bdf_table(dtype, device) -> torch.Tensor:
+    """The BDF coefficients of every step, in the compute dtype: row
+    ``step_class(t)`` (t during the startup ramp, then 4 + t % 6) holds
+    step t -> t+1's a0, then the weight of each rolling history slot 0..5
+    (0 for the slot the step does not read).  Built once per solve."""
+    tab = np.zeros((4 + HISTORY, 1 + HISTORY))
+    for c in range(4 + HISTORY):
+        t = c if c < 4 else c + 2          # a step of class c
+        a = BDF_TABLE[min(t, 4)]
+        tab[c, 0] = a[0]
+        for m in range(5):
+            tab[c, 1 + (t - m) % HISTORY] = a[m + 1]
+    return torch.as_tensor(tab, dtype=dtype, device=device)
+
+
 def _bdf_coeffs(t: int, like: torch.Tensor):
     """(a0, {slot: weight}) for step t -> t+1 with the rolling slot layout."""
-    a = BDF_TABLE[min(t, 4)]
-    slots = [(t - m) % HISTORY for m in range(5)]
-    return _scalar(a[0], like), {s: float(a[m + 1]) for m, s in enumerate(slots)}
+    row = bdf_table(like.dtype, like.device)[step_class(t)]
+    return row[0], {s: float(row[1 + s]) for s in range(HISTORY)}
 
 
-def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol):
-    """One BDF step on the rolling histories (6, batch, L); shared by
-    ``solve``, the coarse phases of models/twophase.py and the off-grid
-    phases of models/offgrid.py.  ``gauss_seidel`` steps with
-    models/trpl.implicit_step, the only scheme that reads the iterate's E;
-    ``coupled_newton_pallas`` with the per-step Newton kernel
-    (ops/newton_kernel.newton_step, the JAX package's pallas_newton_step),
-    every other method with models/newton.coupled_newton_step, which
-    eliminates E.  (The JAX package also sends the
-    fused-horizon methods' per-step dispatch to the Pallas step on the TPU;
-    its solve() never reaches that branch, so it is not ported.)  Updates
-    the histories in place and returns (N, P, E, iters, ok)."""
-    a0, w = _bdf_coeffs(t, nh)
-    bn = sum(_scalar(w.get(s, 0.0), nh) * nh[s] for s in range(HISTORY))
-    bp = sum(_scalar(w.get(s, 0.0), ph) * ph[s] for s in range(HISTORY))
-    be = sum(_scalar(w.get(s, 0.0), eh) * eh[s] for s in range(HISTORY))
+def _hist_sum(row, h, out=None):
+    """The sum over slots s = 0..5 of ``row[1 + s] * h[s]``: every slot's
+    product in one multiply, then the adds in slot order from 0, as
+    Python's ``sum`` adds them (so bitwise its result).  ``out``: the
+    buffer to write it into."""
+    prod = row[1:, None, None] * h
+    acc = torch.add(prod[0], 0, out=out)
+    for s in range(1, HISTORY):
+        acc.add_(prod[s])
+    return acc
+
+
+def _step_inputs(t: int, nh, ph, eh, cfg: SolverConfig, row, out=(None, None, None)):
+    """(a0, bN, bP, bE, Nk, Pk, Ek) of step t: the history sums over slots
+    0..5 in order (the zero-weight slot included) with ``row`` the step's
+    row of :func:`bdf_table`, written into ``out``'s buffers where given,
+    and the extrapolated initial iterate with a positivity fallback (Ek
+    only for ``gauss_seidel``, None otherwise)."""
+    bn, bp, be = (_hist_sum(row, h, o) for h, o in zip((nh, ph, eh), out))
     k = t % HISTORY
-    kp = (t + 1) % HISTORY
     Nk, Pk = nh[k], ph[k]
     if cfg.predictor in ("linear", "quadratic", "geometric"):
         # Extrapolated initial iterate with a positivity fallback (the same
@@ -162,20 +184,139 @@ def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol
             Px = torch.where(Pm > 0, Pk * (Pk / torch.where(Pm > 0, Pm, 1.0)), Px)
         Nk = torch.where(Nx > 0, Nx, Nk)
         Pk = torch.where(Px > 0, Px, Pk)
+    Ek = None
     if cfg.method == "gauss_seidel":
         Ek = eh[k]
         if cfg.predictor in ("linear", "quadratic", "geometric"):
             Ek = Ek + float(min(t, 1)) * (Ek - eh[(t - 1) % HISTORY])
+    return row[0], bn, bp, be, Nk, Pk, Ek
+
+
+def bdf_step(t: int, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol,
+             table: Optional[torch.Tensor] = None):
+    """One BDF step on the rolling histories (6, batch, L), its Newton loop
+    tested on the host (models/step_graph.py's eager route; the others go
+    through :class:`BdfStepper`); shared by ``solve``, the coarse phases of
+    models/twophase.py, the off-grid phases of models/offgrid.py and the
+    plain full-Newton chain of ops/horizon_kernel.py.  ``table``: the
+    solve's :func:`bdf_table` (built here if not given).
+    ``gauss_seidel`` steps with models/trpl.implicit_step, the only scheme
+    that reads the iterate's E; ``coupled_newton_pallas`` with the per-step
+    Newton kernel (ops/newton_kernel.newton_step, the JAX package's
+    pallas_newton_step), every other method with
+    models/newton.coupled_newton_step, which eliminates E.  (The JAX package
+    also sends the fused-horizon methods' per-step dispatch to the Pallas
+    step on the TPU; its solve() never reaches that branch, so it is not
+    ported.)  Updates the histories in place and returns (N, P, E, iters,
+    ok)."""
+    table = bdf_table(nh.dtype, nh.device) if table is None else table
+    a0, bn, bp, be, Nk, Pk, Ek = _step_inputs(t, nh, ph, eh, cfg, table[step_class(t)])
+    if cfg.method == "gauss_seidel":
         Nn, Pn, En, iters, ok = implicit_step(
             Nk, Pk, Ek, bn, bp, be, mp, a0, tol, cfg.max_iters, step_tol=step_tol)
     else:
         step = newton_step if cfg.method == "coupled_newton_pallas" else coupled_newton_step
         Nn, Pn, En, iters, ok = step(
             Nk, Pk, bn, bp, be, mp, a0, tol, cfg.max_iters, step_tol=step_tol)
+    kp = (t + 1) % HISTORY
     nh[kp] = Nn
     ph[kp] = Pn
     eh[kp] = En
     return Nn, Pn, En, iters, ok
+
+
+class BdfStepper:
+    """The BDF steps of one step loop on its rolling histories (6, batch,
+    L), through a models/step_graph.StepRunner.
+
+    :meth:`step` runs step t and then ``update(N, P, E, iters, ok)``, the
+    caller's own work of the step, which must change nothing but buffers
+    allocated before the loop (in place) and branch in Python only on what
+    its ``key`` names.  On the eager route that is :func:`bdf_step`.  On the
+    others the step's inputs go into buffers of their own, and the step is
+    a set-up piece, the Newton loop (models/newton.CoupledNewtonLoop or
+    models/trpl.GaussSeidelLoop, its exit lagged) and an end piece; with
+    ``coupled_newton_pallas`` one piece holds all of it, the per-step
+    kernel bound once (ops/newton_kernel.step_launcher).  On the graph
+    route each piece is a CUDA graph per step class and key.  The values
+    handed to ``update`` live in those buffers until the next step.
+    ``eager_step``: the eager route's step (a caller's own name for
+    :func:`bdf_step`)."""
+
+    def __init__(self, nh, ph, eh, mp: MatParams, cfg: SolverConfig, tol, step_tol,
+                 runner, eager_step=None):
+        self.nh, self.ph, self.eh, self.mp, self.cfg = nh, ph, eh, mp, cfg
+        self.tol, self.step_tol, self.runner = tol, step_tol, runner
+        self.eager_step = bdf_step if eager_step is None else eager_step
+        self.table = bdf_table(nh.dtype, nh.device)
+        if runner.route == "eager":
+            return
+        like = nh[0]
+        onehot_rows(like)
+        self.a0 = torch.zeros((), dtype=like.dtype, device=like.device)
+        self.bn, self.bp, self.be, self.Nk, self.Pk, self.Ek = (
+            torch.empty_like(like) for _ in range(6))
+        args = (self.bn, self.bp, self.be, mp, self.a0, tol, cfg.max_iters, step_tol)
+        self.loop = None
+        if cfg.method == "gauss_seidel":
+            self.loop = GaussSeidelLoop(self.Nk, self.Pk, self.Ek, *args)
+        elif cfg.method != "coupled_newton_pallas":
+            self.loop = CoupledNewtonLoop(self.Nk, self.Pk, *args)
+        elif like.is_cuda:
+            self.launch, self.out = step_launcher(self.Nk, self.Pk, *args,
+                                                  stream=runner.launch_stream)
+        else:
+            self.out = (*(torch.empty_like(like) for _ in range(3)),
+                        torch.empty(like.shape[0], dtype=torch.int32),
+                        torch.empty(like.shape[0], dtype=torch.int32))
+
+    def step(self, t: int, update, key=()):
+        if self.runner.route == "eager":
+            update(*self.eager_step(t, self.nh, self.ph, self.eh, self.mp, self.cfg,
+                                    self.tol, self.step_tol, self.table))
+            return
+        c, run = step_class(t), self.runner.run
+        if self.loop is None:
+            run(("step", c) + tuple(key),
+                lambda: (self._start(t), self._kernel(), self._end(t, update)))
+            return
+        run(("start", c), lambda: (self._start(t), self.runner.mark(self.loop)))
+        self.runner.loop("newton", self.loop)
+        run(("end", c) + tuple(key), lambda: self._end(t, update))
+
+    def _start(self, t: int):
+        a0, _, _, _, Nk, Pk, Ek = _step_inputs(t, self.nh, self.ph, self.eh, self.cfg,
+                                               self.table[step_class(t)],
+                                               (self.bn, self.bp, self.be))
+        for buf, x in ((self.a0, a0), (self.Nk, Nk), (self.Pk, Pk)):
+            buf.copy_(x)
+        if Ek is not None:
+            self.Ek.copy_(Ek)
+        if self.loop is not None:
+            self.loop.reset()
+
+    def _kernel(self):
+        if self.Nk.is_cuda:
+            self.launch()
+            return
+        out = newton_step(self.Nk, self.Pk, self.bn, self.bp, self.be, self.mp, self.a0,
+                          self.tol, self.cfg.max_iters, step_tol=self.step_tol)
+        for buf, x in zip(self.out, out):
+            buf.copy_(x)
+
+    def _end(self, t: int, update):
+        if self.loop is None:
+            Nn, Pn, En, iters, ok = self.out
+            ok = ok.bool()
+        else:
+            Nn, Pn, iters, ok = self.Nk, self.Pk, self.loop.its, self.loop.done
+            En = (self.Ek if self.cfg.method == "gauss_seidel" else
+                  update_e(Nn, Pn, self.be, self.mp, self.a0))
+        kp = (t + 1) % HISTORY
+        self.nh[kp] = Nn
+        self.ph[kp] = Pn
+        self.eh[kp] = En
+        update(Nn, Pn, En, iters, ok)
 
 
 def init_history(n_init, p_init, e_init):
@@ -247,8 +388,11 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
     dev = n_init.device
     tol = _scalar(cfg.tol, n_init)
     step_tol = _scalar(0.0 if cfg.step_tol is None else cfg.step_tol, n_init)
+    if obs is not None:
+        # The log offset as a tensor once, so that no step makes one.
+        obs = obs._replace(log_scale=_scalar(obs.log_scale, n_init))
     if init_hist is not None:
-        # bdf_step writes the histories in place: the caller's stay as given.
+        # The steps write the histories in place: the caller's stay as given.
         nh, ph, eh = (h.clone() for h in init_hist)
         k0 = start_step % HISTORY
         n_cur, p_cur = nh[k0], ph[k0]
@@ -262,8 +406,9 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
         n_cur, p_cur = n_init, p_init
     pl0 = (pl_observable(n_cur, p_cur, mp) if pl0 is None
            else torch.as_tensor(pl0, dtype=n_init.dtype, device=dev))
+    sse = esum = None
     if acc0 is not None:
-        sse, esum = acc0
+        sse, esum = (x.clone() for x in acc0)
     elif obs is not None:
         e0 = _log_pl(pl0, obs, pl0) - obs.values[:, 0:1]      # (num_exp, batch)
         if obs.mask is not None:
@@ -277,46 +422,65 @@ def solve(mat_nd, n_init, p_init, e_init, cfg: SolverConfig,
                          device=dev) if rss is not None else None)
     iters_trace = (torch.zeros(n_outer, dtype=torch.int32, device=dev)
                    if cfg.record_iters else None)
+    # The PL trace, written column by column as the record launch does.
+    trace = None
+    if record_pl:
+        trace = torch.empty((batch, n_outer + 1), dtype=n_init.dtype, device=dev)
+        trace[:, 0] = pl0
     conv = torch.ones(batch, dtype=torch.bool, device=dev)
     samp_it = torch.zeros(batch, dtype=torch.int32, device=dev)
     max_it = torch.zeros((), dtype=torch.int32, device=dev)
-    pls = [pl0]
-    for t in range(start_step, start_step + cfg.num_steps):
-        Nn, Pn, En, iters, ok_t = bdf_step(t, nh, ph, eh, mp, cfg, tol, step_tol)
-        samp_it = samp_it + iters
+    # Since the last recorded point: every step converged, the largest
+    # per-step iteration count; and the recorded points so far (on the
+    # device, so that a step's work names its columns without the host).
+    ok = torch.ones(batch, dtype=torch.bool, device=dev)
+    outer_it = torch.zeros((), dtype=torch.int32, device=dev)
+    col = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def update(Nn, Pn, En, iters, ok_t, record, frame):
+        samp_it.add_(iters)
         step_max = iters.max()
-        max_it = torch.maximum(max_it, step_max)
-        first = t % stride == 0
-        ok = ok_t if first else ok & ok_t
-        outer_it = step_max if first else torch.maximum(outer_it, step_max)
-        if (t + 1) % stride:
-            continue
-        # Recorded point j + 1, after pl_stride steps (JAX solver.py:367-416).
-        j = (t - start_step) // stride
+        torch.maximum(max_it, step_max, out=max_it)
+        ok.logical_and_(ok_t)
+        torch.maximum(outer_it, step_max, out=outer_it)
+        if not record:
+            return
+        # Recorded point j + 1 = col + 1, after pl_stride steps (JAX
+        # solver.py:367-416).
         pl = pl_observable(Nn, Pn, mp)
-        if record_pl:
-            pls.append(pl)
+        if trace is not None:
+            trace.index_copy_(1, col + 1, pl[:, None])
         if obs is not None:
-            e = _log_pl(pl, obs, pl0) - obs.values[:, j + 1:j + 2]
+            e = _log_pl(pl, obs, pl0) - obs.values.index_select(1, col + 1)
             if obs.mask is not None:
                 # A step whose observation points are all mask padding
                 # carries no likelihood weight and cannot fail a sample.
-                mcol = obs.mask[:, j + 1:j + 2]
-                ok = ok | (mcol.sum() == 0)
-                sse = sse + mcol * e ** 2
-                esum = esum + mcol * e
+                mcol = obs.mask.index_select(1, col + 1)
+                ok.logical_or_(mcol.sum() == 0)
+                sse.add_(mcol * e ** 2)
+                esum.add_(mcol * e)
             else:
-                sse = sse + e ** 2
-                esum = esum + e
-        conv = conv & ok
-        if states is not None and (j + 1) * stride % rss == 0:
-            states[0, j], states[1, j], states[2, j] = Nn, Pn, En
+                sse.add_(e ** 2)
+                esum.add_(e)
+        conv.logical_and_(ok)
+        if frame:
+            states.index_copy_(1, col, torch.stack((Nn, Pn, En))[:, None])
         if iters_trace is not None:
-            iters_trace[j] = outer_it
+            iters_trace.index_copy_(0, col, outer_it[None])
+        ok.fill_(True)
+        outer_it.zero_()
+        col.add_(1)
+
+    stepper = BdfStepper(nh, ph, eh, mp, cfg, tol, step_tol, StepRunner(dev))
+    for t in range(start_step, start_step + cfg.num_steps):
+        record = (t + 1) % stride == 0
+        frame = (states is not None and record
+                 and (t + 1 - start_step) % rss == 0)
+        stepper.step(t, lambda *out, r=record, f=frame: update(*out, r, f),
+                     (record, frame))
     k_final = (start_step + cfg.num_steps) % HISTORY
     return SolveResult(
-        pl=torch.stack(pls, dim=1) if record_pl else None,
-        n=nh[k_final], p=ph[k_final], e=eh[k_final], converged=conv,
+        pl=trace, n=nh[k_final], p=ph[k_final], e=eh[k_final], converged=conv,
         max_newton_iters=max_it,
         sse=sse if obs is not None else None,
         err_sum=esum if obs is not None else None,

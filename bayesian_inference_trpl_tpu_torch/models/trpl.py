@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.tridiag import pcr_solve, residual_l1, shift_left, shift_right
+from .step_graph import eager_loop
 
 # BDF startup ramp: row t (0..3) is the order-(t+1) method used at step t;
 # row 4 is BDF5, used for all later steps (reference: pvSimPCR.py:241-250).
@@ -71,13 +72,33 @@ def _col(v: torch.Tensor) -> torch.Tensor:
     return v[:, None]
 
 
+# One-hot rows, built once per (L, idx, dtype, device): a step loop
+# captured as a CUDA graph cannot write a host value into a row.
+_ONEHOT = {}
+
+
 def _onehot(x: torch.Tensor, idx: int) -> torch.Tensor:
-    """One-hot (1, L) row in x's dtype and device.  Column updates are
-    multiply-adds with it, as in the JAX package, so that non-finite
-    values propagate the same way."""
-    h = torch.zeros((1, x.shape[-1]), dtype=x.dtype, device=x.device)
-    h[0, idx] = 1.0
+    """One-hot (1, L) row in x's dtype and device (exact 0/1), cached.
+    Column updates are multiply-adds with it, as in the JAX package, so
+    that non-finite values propagate the same way.  A row first asked for
+    while a CUDA graph is being captured raises (the capture would record
+    its construction, not run it): warm it with :func:`onehot_rows`."""
+    key = (x.shape[-1], idx, x.dtype, x.device)
+    h = _ONEHOT.get(key)
+    if h is None:
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"one-hot row {key} first asked for inside a CUDA "
+                               f"graph capture")
+        h = _ONEHOT[key] = (torch.arange(x.shape[-1], device=x.device)
+                            == idx).to(x.dtype)[None]
     return h
+
+
+def onehot_rows(x: torch.Tensor) -> None:
+    """Build the rows of x's width that the model reads (columns 0 and
+    L - 1), before a step loop is captured."""
+    for idx in (0, x.shape[-1] - 1):
+        _onehot(x, idx)
 
 
 def _zero_col(x: torch.Tensor, idx: int = 0) -> torch.Tensor:
@@ -194,6 +215,55 @@ def newton_iteration(Nk, Pk, Ek, bN, bP, bE, mp: MatParams, a0):
     return Nk1, Pk1, Ek1, err_n, err_p
 
 
+class GaussSeidelLoop:
+    """The Gauss-Seidel fixed-point loop of one BDF step, in place on
+    buffers that live across steps (so that models/step_graph.py can
+    replay its iterations): ``Nk``/``Pk``/``Ek`` hold the iterate, and the
+    caller writes the step's predicted iterate into them and calls
+    :meth:`reset` before the first iteration.  The history sums and a0 are
+    read from the tensors given here, which the caller also rewrites in
+    place every step."""
+
+    def __init__(self, Nk, Pk, Ek, bN, bP, bE, mp: MatParams, a0, tol,
+                 max_iters: int, step_tol=0.0):
+        self.Nk, self.Pk, self.Ek = Nk, Pk, Ek
+        self.bN, self.bP, self.bE, self.mp, self.a0 = bN, bP, bE, mp, a0
+        self.tol, self.step_tol = tol, step_tol
+        self.limit = max_iters
+        batch = Nk.shape[0]
+        self.done = torch.zeros(batch, dtype=torch.bool, device=Nk.device)
+        self.its = torch.zeros(batch, dtype=torch.int32, device=Nk.device)
+
+    def reset(self):
+        self.done.zero_()
+        self.its.zero_()
+
+    @staticmethod
+    def variant(i: int):
+        return None
+
+    def all_done(self) -> torch.Tensor:
+        return self.done.all()
+
+    def iterate(self, variant=None, masked: bool = False):
+        """One sweep over the whole batch; only the samples not yet done
+        take the update, so a sweep after every sample is done changes
+        nothing."""
+        Nk, Pk, Ek, tol, step_tol = self.Nk, self.Pk, self.Ek, self.tol, self.step_tol
+        Nk1, Pk1, Ek1, err_n, err_p = newton_iteration(
+            Nk, Pk, Ek, self.bN, self.bP, self.bE, self.mp, self.a0)
+        ok_step = (((Nk1 - Nk).abs().amax(-1) <= step_tol * Nk1.abs().amax(-1))
+                   & ((Pk1 - Pk).abs().amax(-1) <= step_tol * Pk1.abs().amax(-1))
+                   & (err_n < tol * STEP_TOL_RESIDUAL_GUARD)
+                   & (err_p < tol * STEP_TOL_RESIDUAL_GUARD))
+        upd = (~self.done)[:, None]
+        Nk.copy_(torch.where(upd, Nk1, Nk))
+        Pk.copy_(torch.where(upd, Pk1, Pk))
+        Ek.copy_(torch.where(upd, Ek1, Ek))
+        self.its.add_(upd[:, 0].to(torch.int32))
+        self.done.copy_(self.done | ((err_n < tol) & (err_p < tol)) | ok_step)
+
+
 def implicit_step(Nk0, Pk0, Ek0, bN, bP, bE, mp: MatParams, a0, tol,
                   max_iters: int, step_tol=0.0):
     """Advance one BDF step by the Gauss-Seidel fixed-point loop, each
@@ -204,29 +274,14 @@ def implicit_step(Nk0, Pk0, Ek0, bN, bP, bE, mp: MatParams, a0, tol,
     P, with both residuals within STEP_TOL_RESIDUAL_GUARD x tol; step_tol
     0 turns that off, the reference's semantics).  Every iteration sweeps
     the whole batch; only the samples not yet done take the update.  The
-    loop ends at ``max_iters`` or when every sample is done: on the card
-    that exit test is one host read per iteration.
+    loop ends at ``max_iters`` or when every sample is done, tested on the
+    host before each iteration (models/step_graph.py's eager route; its
+    other routes run :class:`GaussSeidelLoop` with the test lagged).
 
     Returns (N, P, E, iters, converged), iters the (batch,) count of
     updates applied.
     """
-    batch = Nk0.shape[0]
-    dev = Nk0.device
-    Nk, Pk, Ek = Nk0, Pk0, Ek0
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
-    its = torch.zeros(batch, dtype=torch.int32, device=dev)
-    it = 0
-    while it < max_iters and not bool(done.all()):
-        Nk1, Pk1, Ek1, err_n, err_p = newton_iteration(Nk, Pk, Ek, bN, bP, bE, mp, a0)
-        ok_step = (((Nk1 - Nk).abs().amax(-1) <= step_tol * Nk1.abs().amax(-1))
-                   & ((Pk1 - Pk).abs().amax(-1) <= step_tol * Pk1.abs().amax(-1))
-                   & (err_n < tol * STEP_TOL_RESIDUAL_GUARD)
-                   & (err_p < tol * STEP_TOL_RESIDUAL_GUARD))
-        upd = (~done)[:, None]
-        Nk = torch.where(upd, Nk1, Nk)
-        Pk = torch.where(upd, Pk1, Pk)
-        Ek = torch.where(upd, Ek1, Ek)
-        its = its + upd[:, 0].to(torch.int32)
-        done = done | ((err_n < tol) & (err_p < tol)) | ok_step
-        it += 1
-    return Nk, Pk, Ek, its, done
+    loop = GaussSeidelLoop(Nk0.clone(), Pk0.clone(), Ek0.clone(), bN, bP, bE, mp, a0,
+                           tol, max_iters, step_tol)
+    eager_loop(loop)
+    return loop.Nk, loop.Pk, loop.Ek, loop.its, loop.done

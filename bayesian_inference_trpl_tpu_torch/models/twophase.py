@@ -20,8 +20,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .solver import (FusedObs, HISTORY, SolveResult, SolverConfig, _log_pl,
-                     _scalar, bdf_step, init_history, pl_observable, solve)
+from .solver import (BdfStepper, FusedObs, HISTORY, SolveResult, SolverConfig,
+                     _log_pl, _scalar, init_history, pl_observable, solve)
+from .step_graph import StepRunner
 from .trpl import MatParams
 
 # Columns of the nondimensionalized parameter matrix that scale with dt
@@ -126,8 +127,9 @@ def _coarse_phase(mat_nd, n0, p0, e0, cfg: SolverConfig, obs: FusedObs,
     step_tol = _scalar(0.0 if cfg.step_tol is None else cfg.step_tol, n0)
 
     nh, ph, eh = init_history(n0, p0, e0)
-    lp_win = [torch.zeros_like(pl0)] * 3 + [
-        _log_pl(pl_observable(n0, p0, mp), obs_c, pl0_c)]
+    # The trailing window of coarse log-PL nodes, oldest first.
+    lp_win = torch.zeros((4,) + pl0.shape, dtype=n0.dtype, device=n0.device)
+    lp_win[3] = _log_pl(pl_observable(n0, p0, mp), obs_c, pl0_c)
     wtab = torch.as_tensor(_lagrange_weight_table(S), dtype=n0.dtype,
                            device=n0.device)
     num_exp = obs.values.shape[0]
@@ -135,25 +137,32 @@ def _coarse_phase(mat_nd, n0, p0, e0, cfg: SolverConfig, obs: FusedObs,
     mask = (None if obs.mask is None else
             obs.mask[:, t_off + 1:t_off + n_fine + 1].reshape(num_exp, C, S))
 
-    conv, max_it, samp_it, sse, esum = acc
-    for c in range(C):
-        Nn, Pn, _, iters, ok = bdf_step(c, nh, ph, eh, mp, cfg, tol, step_tol)
-        lp_win = lp_win[1:] + [_log_pl(pl_observable(Nn, Pn, mp), obs_c, pl0_c)]
+    conv, max_it, samp_it, sse, esum = (x.clone() for x in acc)
+    col = torch.zeros(1, dtype=torch.long, device=n0.device)   # the coarse step
+
+    def update(c, Nn, Pn, En, iters, ok):
+        new = _log_pl(pl_observable(Nn, Pn, mp), obs_c, pl0_c)
+        lp_win.copy_(torch.cat([lp_win[1:], new[None]]))
         W = wtab[min(c, 2)]                                     # (S, 4)
         lp_fine = sum(W[None, :, a] * lp_win[a][:, None] for a in range(4))
-        e = lp_fine[None] - vals[:, c][:, None, :]              # (num_exp, batch, S)
+        e = lp_fine[None] - vals.index_select(1, col)           # (num_exp, batch, S)
         if mask is not None:
-            m = mask[:, c][:, None, :]
+            m = mask.index_select(1, col)
             # Padding-only coarse steps carry no likelihood weight.
-            ok = ok | (mask[:, c].sum() == 0)
-            sse = sse + (m * e * e).sum(-1)
-            esum = esum + (m * e).sum(-1)
+            ok = ok | (m.sum() == 0)
+            sse.add_((m * e * e).sum(-1))
+            esum.add_((m * e).sum(-1))
         else:
-            sse = sse + (e * e).sum(-1)
-            esum = esum + e.sum(-1)
-        conv = conv & ok
-        max_it = torch.maximum(max_it, iters.max())
-        samp_it = samp_it + iters
+            sse.add_((e * e).sum(-1))
+            esum.add_(e.sum(-1))
+        conv.logical_and_(ok)
+        torch.maximum(max_it, iters.max(), out=max_it)
+        samp_it.add_(iters)
+        col.add_(1)
+
+    stepper = BdfStepper(nh, ph, eh, mp, cfg, tol, step_tol, StepRunner(n0.device))
+    for c in range(C):
+        stepper.step(c, lambda *out, c=c: update(c, *out))
     k_final = C % HISTORY
     return nh[k_final], ph[k_final], eh[k_final], (conv, max_it, samp_it, sse, esum)
 

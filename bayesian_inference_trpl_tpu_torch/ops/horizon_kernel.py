@@ -42,7 +42,8 @@ Four pieces live here:
   a launch sits on the card.
 * :func:`horizon_chord_plain` -- the plain PyTorch version of the same
   function: a Python step loop over models/newton.py and
-  ops/block_tridiag.py.  Its ``group`` argument sets how many samples share
+  ops/block_tridiag.py (on the card, CUDA graph replays of its steps and
+  iterations, models/step_graph.py).  Its ``group`` argument sets how many samples share
   the three decisions of chord Newton (skip the step, leave the iteration
   loop, refresh the Jacobian).  The CUDA kernel runs one sample per warp
   and takes them per sample, so it is held to ``group=1``; the JAX kernel takes them
@@ -67,11 +68,12 @@ import numpy as np
 import torch
 
 from ..models.newton import residuals_and_errors, residuals_and_jacobian
-from ..models.solver import (FusedObs, SolveResult, SolverConfig, _log_pl,
-                             _scalar, bdf_step, init_history, log_floor,
+from ..models.solver import (BdfStepper, FusedObs, SolveResult, SolverConfig,
+                             _log_pl, _scalar, init_history, log_floor,
                              pl_observable)
+from ..models.step_graph import StepRunner, step_class
 from ..models.trpl import (BDF_TABLE, HISTORY, MatParams, SKIP_ACCEPT_FACTOR,
-                           STEP_TOL_RESIDUAL_GUARD, update_e)
+                           STEP_TOL_RESIDUAL_GUARD, onehot_rows, update_e)
 from . import kernel_lib
 from .kernel_lib import check_tensor as _check
 from .block_tridiag import block_pcr_apply, block_pcr_reduce
@@ -164,21 +166,42 @@ def _select(sel, new, old):
     return torch.where(sel[:, None], new, old)
 
 
-class _Chord:
-    """Chord Newton with a PCR factorization cached across time steps; the
-    state of one launch (cache, cache-valid flags, telemetry per group)."""
+def _assign(dst, src):
+    """Leafwise in-place copy over the nested cache tuples."""
+    if isinstance(dst, tuple):
+        for a, b in zip(dst, src):
+            _assign(a, b)
+    else:
+        dst.copy_(src)
 
-    def __init__(self, batch, group, device, prm: HorizonParams, tol):
+
+class _Chord:
+    """Chord Newton with a PCR factorization cached across time steps: the
+    state of one launch (cache, cache-valid flags, telemetry per group) and
+    of its current step, in buffers updated in place, so that
+    models/step_graph.py can run the iteration loop (:meth:`iterate`,
+    ``limit``, ``variant``, ``all_done``) on any route.  A step is
+    :meth:`start`, the loop, :meth:`finish`."""
+
+    def __init__(self, like, group, prm: HorizonParams, tol, mp, step_tol):
+        batch = like.shape[0]
         if batch % group:
             raise ValueError(f"batch {batch} not divisible by group {group}")
+        device = like.device
         self.group = group
         self.G = batch // group
         self.prm = prm
-        self.tol = tol
+        self.limit = prm.max_iters
+        self.tol, self.mp, self.step_tol = tol, mp, step_tol
         self.skip_tol = tol * prm.skip_accept_factor * prm.skip_tighten
         self.guard_full = tol * prm.step_tol_guard
         self.guard_chord = tol * prm.settle_guard
-        self.cache = None
+        # The cache starts as the factorization of the identity; the first
+        # refresh replaces it on every row (cache_set), as it did no row's
+        # before.
+        z, o = torch.zeros_like(like), torch.ones_like(like)
+        self.cache = block_pcr_reduce((z,) * 4, (o, z, z, o), (z,) * 4)
+        self.cache_set = torch.zeros((), dtype=torch.bool, device=device)
         self.cval = torch.zeros(self.G, dtype=torch.bool, device=device)
         self.fulls = torch.zeros(self.G, dtype=torch.int32, device=device)
         self.execs = torch.zeros(self.G, dtype=torch.int32, device=device)
@@ -188,6 +211,16 @@ class _Chord:
                 r = 1.0 / x
                 return r * (2.0 - x * r)
             self.recip = recip
+        # The current step: its inputs, iterate, residuals and flags.
+        self.a0 = torch.zeros((), dtype=like.dtype, device=device)
+        self.bN, self.bP, self.bE, self.Nk, self.Pk, self.F_N, self.F_P = (
+            torch.empty_like(like) for _ in range(7))
+        self.err_n, self.err_p = (torch.empty(batch, dtype=like.dtype, device=device)
+                                  for _ in range(2))
+        self.done = torch.zeros(batch, dtype=torch.bool, device=device)
+        self.its = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.active = torch.zeros(self.G, dtype=torch.bool, device=device)
+        self.ffull = torch.zeros(self.G, dtype=torch.bool, device=device)
 
     def _rows(self, g):
         return g.repeat_interleave(self.group)
@@ -195,56 +228,125 @@ class _Chord:
     def _groups(self, x):
         return x.view(self.G, self.group)
 
-    def step(self, Nk, Pk, bN, bP, bE, mp, a0, step_tol):
-        prm, tol, skip_tol = self.prm, self.tol, self.skip_tol
-        (F_N, F_P), (err_n, err_p) = residuals_and_errors(
-            Nk, Pk, bN, bP, bE, mp, a0)
-        ok0 = (err_n < skip_tol) & (err_p < skip_tol)
+    def _residuals(self):
+        return residuals_and_errors(self.Nk, self.Pk, self.bN, self.bP, self.bE,
+                                    self.mp, self.a0)
+
+    def start(self, a0, bN, bP, bE, Nk, Pk):
+        """The step's inputs, then the cheap residual check: a group whose
+        samples all pass the tightened skip tolerance skips the step."""
+        for buf, x in ((self.a0, a0), (self.bN, bN), (self.bP, bP), (self.bE, bE),
+                       (self.Nk, Nk), (self.Pk, Pk)):
+            buf.copy_(x)
+        (F_N, F_P), (err_n, err_p) = self._residuals()
+        for buf, x in ((self.F_N, F_N), (self.F_P, F_P), (self.err_n, err_n),
+                       (self.err_p, err_p)):
+            buf.copy_(x)
+        ok0 = (err_n < self.skip_tol) & (err_p < self.skip_tol)
         active = ~self._groups(ok0).all(1)   # groups that enter the loop
-        done = ok0 | ~self._rows(active)     # a skipping group is all done
-        its = torch.zeros_like(ok0, dtype=torch.int32)
-        ffull = ~self.cval
-        it = 0
-        while it < prm.max_iters and bool(active.any()):
-            act = self._rows(active)
-            self.execs += active.to(torch.int32)
-            do_full = ffull & active
-            if bool(do_full.any()):
-                _, (A, B, C) = residuals_and_jacobian(Nk, Pk, bN, bP, bE, mp, a0)
-                new = block_pcr_reduce(A, B, C, recip=self.recip)
-                self.cache = (new if self.cache is None else
-                              _select(self._rows(do_full), new, self.cache))
-                self.cval = self.cval | do_full
-                self.fulls += do_full.to(torch.int32)
-            dN, dP = block_pcr_apply(self.cache, (-F_N, -F_P))
-            upd = (~done).to(Nk.dtype)[:, None]
-            Nn = Nk + upd * (torch.maximum(Nk + dN, 0.05 * Nk) - Nk)
-            Pn = Pk + upd * (torch.maximum(Pk + dP, 0.05 * Pk) - Pk)
-            Nk = torch.where(act[:, None], Nn, Nk)
-            Pk = torch.where(act[:, None], Pn, Pk)
-            its = its + (act & ~done).to(torch.int32)
-            # State-settled acceptance: a full step gets the loose guard; a
-            # chord step the settle guard (0 in the strict profile).
-            guard = torch.where(self._rows(do_full), self.guard_full,
-                                self.guard_chord)
-            ok_step = ((dN.abs().amax(-1) <= step_tol * Nk.abs().amax(-1))
-                       & (dP.abs().amax(-1) <= step_tol * Pk.abs().amax(-1))
-                       & (err_n < guard) & (err_p < guard))
-            (F_N, F_P), (err_n2, err_p2) = residuals_and_errors(
-                Nk, Pk, bN, bP, bE, mp, a0)
-            ok_skip = (err_n2 < skip_tol) & (err_p2 < skip_tol)
-            done = done | (act & (ok_step | ok_skip))
-            # Stall: an active sample whose residual failed to contract by
-            # `stall` under this step -> full refresh next iteration.
-            bad = self._groups(~done & ((err_n2 > prm.stall * err_n)
-                                        | (err_p2 > prm.stall * err_p))).any(1)
-            ffull = torch.where(active, bad | (it + 1 >= prm.chord_budget), ffull)
-            err_n, err_p = err_n2, err_p2
-            it += 1
-            active = active & ~self._groups(done).all(1)
-        done = done | ((err_n < tol) & (err_p < tol))
-        Ek = update_e(Nk, Pk, bE, mp, a0)
-        return Nk, Pk, Ek, done, its
+        self.active.copy_(active)
+        self.done.copy_(ok0 | ~self._rows(active))   # a skipping group is all done
+        self.its.zero_()
+        self.ffull.copy_(~self.cval)
+
+    # The refresh is chosen on the host before each iteration
+    # (models/step_graph.StepRunner.loop): no iteration is lagged.
+    synced = True
+
+    def variant(self, i: int):
+        """(whether iteration i spends the chord budget, so that a refresh
+        follows; whether some active group asks for a Jacobian refresh
+        now), read from the device; None once no group is active."""
+        any_active, refresh = torch.stack(
+            (self.active.any(), (self.ffull & self.active).any())).tolist()
+        if not any_active:
+            return None
+        return i + 1 >= self.prm.chord_budget, refresh
+
+    def all_done(self) -> torch.Tensor:
+        return ~self.active.any()
+
+    def iterate(self, v, masked: bool = False):
+        """One iteration for the active groups, ``v`` its :meth:`variant`:
+        the Jacobian is refreshed only when some group asks, and taken by
+        the rows that asked (``masked`` changes nothing here).  An
+        iteration with no group active changes nothing."""
+        past_budget, refresh = v
+        prm, Nk, Pk, active = self.prm, self.Nk, self.Pk, self.active
+        act = self._rows(active)
+        self.execs += active.to(torch.int32)
+        do_full = self.ffull & active
+        if refresh:
+            _, (A, B, C) = residuals_and_jacobian(Nk, Pk, self.bN, self.bP, self.bE,
+                                                  self.mp, self.a0)
+            new = block_pcr_reduce(A, B, C, recip=self.recip)
+            any_full = do_full.any()
+            _assign(self.cache, _select(self._rows(do_full) | (~self.cache_set & any_full),
+                                        new, self.cache))
+            self.cache_set.logical_or_(any_full)
+            self.cval.logical_or_(do_full)
+            self.fulls += do_full.to(torch.int32)
+        dN, dP = block_pcr_apply(self.cache, (-self.F_N, -self.F_P))
+        done = self.done
+        upd = (~done).to(Nk.dtype)[:, None]
+        Nn = Nk + upd * (torch.maximum(Nk + dN, 0.05 * Nk) - Nk)
+        Pn = Pk + upd * (torch.maximum(Pk + dP, 0.05 * Pk) - Pk)
+        Nk.copy_(torch.where(act[:, None], Nn, Nk))
+        Pk.copy_(torch.where(act[:, None], Pn, Pk))
+        self.its.add_((act & ~done).to(torch.int32))
+        # State-settled acceptance: a full step gets the loose guard; a
+        # chord step the settle guard (0 in the strict profile).
+        guard = torch.where(self._rows(do_full), self.guard_full, self.guard_chord)
+        ok_step = ((dN.abs().amax(-1) <= self.step_tol * Nk.abs().amax(-1))
+                   & (dP.abs().amax(-1) <= self.step_tol * Pk.abs().amax(-1))
+                   & (self.err_n < guard) & (self.err_p < guard))
+        (F_N, F_P), (err_n2, err_p2) = self._residuals()
+        ok_skip = (err_n2 < self.skip_tol) & (err_p2 < self.skip_tol)
+        done = done | (act & (ok_step | ok_skip))
+        # Stall: an active sample whose residual failed to contract by
+        # `stall` under this step -> full refresh next iteration.
+        bad = self._groups(~done & ((err_n2 > prm.stall * self.err_n)
+                                    | (err_p2 > prm.stall * self.err_p))).any(1)
+        self.ffull.copy_(torch.where(active, bad | past_budget, self.ffull))
+        for buf, x in ((self.F_N, F_N), (self.F_P, F_P), (self.err_n, err_n2),
+                       (self.err_p, err_p2), (self.done, done)):
+            buf.copy_(x)
+        self.active.copy_(active & ~self._groups(done).all(1))
+
+    def finish(self):
+        """(N, P, E, iters, converged) of the step."""
+        done = self.done | ((self.err_n < self.tol) & (self.err_p < self.tol))
+        Ek = update_e(self.Nk, self.Pk, self.bE, self.mp, self.a0)
+        return self.Nk, self.Pk, Ek, self.its, done
+
+
+class _ChordSteps:
+    """The chord body's BDF steps on the rolling histories, through a
+    models/step_graph.StepRunner, with the interface of
+    models/solver.BdfStepper (which runs the full body's)."""
+
+    def __init__(self, nh, ph, eh, mp, prm: HorizonParams, tol, step_tol, group,
+                 runner):
+        self.nh, self.ph, self.eh, self.prm, self.runner = nh, ph, eh, prm, runner
+        self.bdf = torch.as_tensor(BDF_TABLE, dtype=nh.dtype, device=nh.device)
+        onehot_rows(nh[0])
+        self.chord = _Chord(nh[0], group, prm, tol, mp, step_tol)
+
+    def step(self, t: int, update, key=()):
+        c, run, chord = step_class(t), self.runner.run, self.chord
+
+        def start():
+            chord.start(*_step_inputs(t, self.nh, self.ph, self.eh, self.bdf,
+                                      self.prm.pred_order))
+
+        def end():
+            Nn, Pn, En, iters, done = chord.finish()
+            new = (t + 1) % HISTORY
+            self.nh[new], self.ph[new], self.eh[new] = Nn, Pn, En
+            update(Nn, Pn, En, iters, done)
+        run(("start", c), start)
+        self.runner.loop("chord", chord)
+        run(("end", c) + tuple(key), end)
 
 
 def _step_inputs(t, nh, ph, eh, bdf, pred_order):
@@ -313,22 +415,25 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     batch, L = n0.shape
     S = prm.stride
     K = prm.offgrid_k
+    P = prm.pl_stride
     num_exp, T = obs.shape[0], obs.shape[1]
     _check_record(prm, T)
     mp = MatParams.from_array(mat)
+    dev, dtype = n0.device, n0.dtype
     tol = _scalar(prm.tol, n0)
     step_tol = _scalar(prm.step_tol, n0)
     log_scale = _scalar(prm.log_scale, n0)
-    mv = log_floor(prm.min_val, n0.dtype)
-    bdf = torch.as_tensor(BDF_TABLE, dtype=n0.dtype, device=n0.device)
+    mv = log_floor(prm.min_val, dtype)
+    nh, ph, eh = init_history(n0, p0, e0)
+    runner = StepRunner(dev)
     if prm.chord:
-        chord = _Chord(batch, group, n0.device, prm, tol)
+        steps = _ChordSteps(nh, ph, eh, mp, prm, tol, step_tol, group, runner)
     else:
         step_cfg = SolverConfig(num_steps=T, max_iters=prm.max_iters,
                                 predictor=_PREDICTOR[prm.pred_order],
                                 method="coupled_newton")
+        steps = BdfStepper(nh, ph, eh, mp, step_cfg, tol, step_tol, runner)
 
-    nh, ph, eh = init_history(n0, p0, e0)
     n0p0 = mp.n0 * mp.p0
     pl00 = mp.rate * ((n0 * p0).sum(-1) - L * n0p0)
     pl0_s = pl00 if pl0 is None else pl0
@@ -341,62 +446,70 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
     # Per-fine-point (stride S) or per-slot (off-grid) sums, reduced at the
     # end as the kernel does.
     acc_shape = (num_exp, batch, K or S) if K or S > 1 else (num_exp, batch)
-    sse = torch.zeros(acc_shape, dtype=n0.dtype, device=n0.device)
+    sse = torch.zeros(acc_shape, dtype=dtype, device=dev)
     esum = torch.zeros_like(sse)
-    conv = torch.ones(batch, dtype=torch.bool, device=n0.device)
-    its = torch.zeros(batch, dtype=torch.int32, device=n0.device)
+    conv = torch.ones(batch, dtype=torch.bool, device=dev)
+    its = torch.zeros(batch, dtype=torch.int32, device=dev)
     maxit = torch.zeros_like(its)
     if S > 1 or K:
-        lpw = [torch.zeros_like(pl00)] * 3 + [logpl(pl00)]
-    pls = [pl00] if prm.pl_stride else None
+        # The trailing window of log-PL nodes, oldest first.
+        lpw = torch.zeros((4, batch), dtype=dtype, device=dev)
+        lpw[3] = logpl(pl00)
+    # The traces, written as the kernel writes them; the step, the recorded
+    # point and the frame as counters on the device.
+    pls = None
+    if P:
+        pls = torch.empty((batch, T // P + 1), dtype=dtype, device=dev)
+        pls[:, 0] = pl00
     every = state_every(prm)
-    frames = [] if every else None
-    rec_its = [] if prm.record_iters else None
+    frames = (torch.empty((T // every, 3, batch, L), dtype=dtype, device=dev)
+              if every else None)
+    rec_its = (torch.empty((batch, T // P), dtype=torch.int32, device=dev)
+               if prm.record_iters else None)
+    rec_it = torch.zeros_like(its)    # the largest count since the last point
+    tcol, rcol, fcol = (torch.zeros(1, dtype=torch.long, device=dev) for _ in range(3))
 
-    for t in range(T):
-        if prm.chord:
-            a0, bN, bP, bE, Nk, Pk = _step_inputs(t, nh, ph, eh, bdf, prm.pred_order)
-            Nn, Pn, En, done, iters = chord.step(Nk, Pk, bN, bP, bE, mp, a0, step_tol)
-            new = (t + 1) % HISTORY
-            nh[new], ph[new], eh[new] = Nn, Pn, En
-        else:
-            Nn, Pn, En, iters, done = bdf_step(t, nh, ph, eh, mp, step_cfg, tol,
-                                               step_tol)
-        its = its + iters
-        maxit = torch.maximum(maxit, iters)
-
+    def update(t, record, frame, Nn, Pn, En, iters, done):
+        its.add_(iters)
+        maxit.copy_(torch.maximum(maxit, iters))
         pl_t = mp.rate * ((Nn * Pn).sum(-1) - L * n0p0)
-        if pls is not None and (t + 1) % prm.pl_stride == 0:
-            pls.append(pl_t)
+        if record:
+            pls.index_copy_(1, rcol + 1, pl_t[:, None])
         if rec_its is not None:
-            rec_it = iters if t % prm.pl_stride == 0 else torch.maximum(rec_it, iters)
-            if (t + 1) % prm.pl_stride == 0:
-                rec_its.append(rec_it)
-        if frames is not None and (t + 1) % every == 0:
-            frames.append(torch.stack((Nn, Pn, En)))
+            rec_it.copy_(torch.maximum(rec_it, iters))
+            if record:
+                rec_its.index_copy_(1, rcol, rec_it[:, None])
+                rec_it.zero_()
+        if frame:
+            frames.index_copy_(0, fcol, torch.stack((Nn, Pn, En))[None])
+            fcol.add_(1)
         lp = logpl(pl_t)
         w_any = None
+        obs_t = obs.index_select(1, tcol)
         if K:
             # Off-grid slots: the 4-node window at K offsets per experiment,
             # summed per slot (over K only at the end, as the kernel does).
-            lpw = lpw[1:] + [lp]
+            lpw.copy_(torch.cat([lpw[1:], lp[None]]))
+            wtab_t = wtab.index_select(1, tcol)
+            vmask_t = vmask.index_select(1, tcol)
             for e in range(num_exp):
-                wk = wtab[e, t]                                    # (4K,)
+                wk = wtab_t[e, 0]                                  # (4K,)
                 lp_at = (lpw[0][:, None] * wk[None, 0:K]
                          + lpw[1][:, None] * wk[None, K:2 * K]
                          + lpw[2][:, None] * wk[None, 2 * K:3 * K]
                          + lpw[3][:, None] * wk[None, 3 * K:4 * K])  # (batch, K)
-                err = lp_at - obs[e, t][None, :]
-                wg = vmask[e, t][None, :]
+                err = lp_at - obs_t[e]
+                wg = vmask_t[e]
                 sse[e] = sse[e] + wg * err * err
                 esum[e] = esum[e] + wg * err
             # Liveness: only steps past the last observation are forgiven.
-            done = done | ~(msk[t] > 0)
+            done = done | ~(msk.index_select(0, tcol) > 0)
         elif S == 1:
+            msk_t = None if msk is None else msk.index_select(1, tcol)
             for e in range(num_exp):
-                err = lp - obs[e, t]
+                err = lp - obs_t[e]
                 if msk is not None:
-                    m = msk[e, t]
+                    m = msk_t[e]
                     w_any = m if w_any is None else torch.maximum(w_any, m)
                     sse[e] = sse[e] + m * err * err
                     esum[e] = esum[e] + m * err
@@ -404,17 +517,19 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
                     sse[e] = sse[e] + err * err
                     esum[e] = esum[e] + err
         else:
-            lpw = lpw[1:] + [lp]
+            lpw.copy_(torch.cat([lpw[1:], lp[None]]))
             Wr = wtab[min(t, 2)]                                   # (S, 4)
             lp_fine = (lpw[0][:, None] * Wr[None, :, 0]
                        + lpw[1][:, None] * Wr[None, :, 1]
                        + lpw[2][:, None] * Wr[None, :, 2]
                        + lpw[3][:, None] * Wr[None, :, 3])          # (batch, S)
+            if msk is not None:
+                msk_t, vmask_t = msk.index_select(1, tcol), vmask.index_select(1, tcol)
             for e in range(num_exp):
-                err = lp_fine - obs[e, t][None, :]
+                err = lp_fine - obs_t[e]
                 if msk is not None:
-                    vm = vmask[e, t][None, :]
-                    m = msk[e, t]
+                    vm = vmask_t[e]
+                    m = msk_t[e]
                     w_any = m if w_any is None else torch.maximum(w_any, m)
                     sse[e] = sse[e] + vm * err * err
                     esum[e] = esum[e] + vm * err
@@ -425,20 +540,27 @@ def horizon_chord_plain(mat, n0, p0, e0, obs, msk, vmask, pl0, wtab,
             # Padding-only steps (zero weight in every experiment) cannot
             # fail a sample.
             done = done | ~(w_any > 0)
-        conv = conv & done
+        conv.logical_and_(done)
+        if record:
+            rcol.add_(1)
+        tcol.add_(1)
+
+    for t in range(T):
+        record = bool(P) and (t + 1) % P == 0
+        frame = bool(every) and (t + 1) % every == 0
+        steps.step(t, lambda *out, t=t, r=record, f=frame: update(t, r, f, *out),
+                   (record, frame))
 
     if sse.dim() == 3:
         sse, esum = sse.sum(-1), esum.sum(-1)
     k = T % HISTORY
-    fulls, execs = ((chord._rows(chord.fulls), chord._rows(chord.execs))
-                    if prm.chord else (its, its))
-    st = it = None
-    if every:
-        st = torch.stack(frames) if frames else n0.new_empty((0, 3, batch, L))
-    if prm.record_iters:
-        it = torch.stack(rec_its, 1) if rec_its else its.new_empty((batch, 0))
+    if prm.chord:
+        chord = steps.chord
+        fulls, execs = chord._rows(chord.fulls), chord._rows(chord.execs)
+    else:
+        fulls, execs = its, its
     return HorizonOut(sse, esum, conv, its, maxit, nh[k], ph[k], eh[k], fulls, execs,
-                      None if pls is None else torch.stack(pls, 1), st, it)
+                      pls, frames, rec_its)
 
 
 def state_every(prm: HorizonParams) -> int:

@@ -12,7 +12,9 @@ method ``coupled_newton_pallas``.
   Newton body is the horizon kernel's full Newton, csrc/trpl_newton.cuh)
   or raises; on CPU tensors it runs the plain version,
   ``coupled_newton_step`` itself.
-* :func:`step_launcher` -- one launch bound to its arguments, for timing.
+* :func:`step_launcher` -- one launch bound to its arguments and stream:
+  a step loop binds it once per solve (models/solver.BdfStepper), and a
+  timer calls it alone.
 * :func:`launch_layout` -- how one launch sits on the card.
 * :func:`step_inputs_from_jax` -- one BDF step's JAX inputs, as numpy, as
   this port's tensors, so that tests feed both the same thing.
@@ -24,13 +26,17 @@ import ctypes
 import numpy as np
 import torch
 
+from ..models import step_graph
 from ..models.newton import coupled_newton_step
 from ..models.trpl import MatParams, SKIP_ACCEPT_FACTOR, STEP_TOL_RESIDUAL_GUARD
 from . import kernel_lib
 
-# Launches of the CUDA kernel, counted by newton_step where it launches;
-# chip_smoke.py zeroes it around each main path.
+# Launches of the CUDA kernel, counted where it launches (and, for a launch
+# captured in a step graph, at each replay of the graph); chip_smoke.py
+# zeroes it around each main path.
 launches = 0
+# (dtype, L, device index) whose kernel attributes are set (_prepare).
+_prepared = set()
 
 _VP, _CI, _CD = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGTYPES = [_VP] * 14 + [_CI] * 3 + [_CD] * 2 + [_VP]
@@ -62,12 +68,34 @@ def newton_step(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
     return n, p, e, its, done.bool()
 
 
+def _count():
+    global launches
+    launches += 1
+
+
+def _prepare(dtype, L: int, dev):
+    """Set the kernel's attributes (opt-in shared memory at width L, the
+    carveout) once per dtype, width and card, before any launch or
+    capture: the launch itself sets none."""
+    key = (dtype, L, dev.index)
+    if key in _prepared:
+        return
+    fn = kernel_lib.function("trpl_newton_step_{}_prepare".format(
+        "f32" if dtype == torch.float32 else "f64"), [_CI])
+    with torch.cuda.device(dev):
+        kernel_lib.check(fn(L), "newton step kernel attributes")
+    _prepared.add(key)
+
+
 def step_launcher(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
-                  step_tol=0.0):
+                  step_tol=0.0, stream=None):
     """Check :func:`newton_step`'s CUDA arguments and allocate its outputs;
     returns (launch, (N, P, E, iters, converged as int32)), where each call
-    of ``launch()`` runs the kernel once into those outputs, with no other
-    host work (so that a timer around it sees the kernel alone)."""
+    of ``launch()`` runs the kernel once on ``stream`` (default: the
+    current one) from the tensors given here into those outputs, with no
+    other host work: a step loop rewrites the inputs in place and calls it
+    once per step, or captures it in a CUDA graph (its launches then count
+    at each replay), and a timer sees the kernel alone."""
     if Nk0.device.type != "cuda":
         raise ValueError(f"newton_step: unsupported device {Nk0.device}")
     dtype, dev = Nk0.dtype, Nk0.device
@@ -85,20 +113,24 @@ def step_launcher(Nk0, Pk0, bN, bP, bE, mp: MatParams, a0, tol, max_iters: int,
     n, p, e = (torch.empty_like(Nk0) for _ in range(3))
     its = torch.empty(batch, dtype=torch.int32, device=dev)
     done = torch.empty_like(its)
+    _prepare(dtype, L, dev)
     fn = kernel_lib.function("trpl_newton_step_{}".format(
         "f32" if dtype == torch.float32 else "f64"), _ARGTYPES)
+    stream = torch.cuda.current_stream(dev) if stream is None else stream
     args = (*(x.data_ptr() for x in (mat, Nk0, Pk0, bN, bP, bE, *scalars,
                                      n, p, e, its, done)),
             batch, L, int(max_iters), float(SKIP_ACCEPT_FACTOR),
-            float(STEP_TOL_RESIDUAL_GUARD), torch.cuda.current_stream(dev).cuda_stream)
+            float(STEP_TOL_RESIDUAL_GUARD), stream.cuda_stream)
 
     def launch():
-        global launches
         # The C entry launches on the current CUDA device, which need not be
         # the inputs' (horizon_kernel.horizon_chord says why that matters).
         with torch.cuda.device(dev):
             kernel_lib.check(fn(*args), "newton step kernel")
-        launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            step_graph.on_replay(_count)
+        else:
+            _count()
     # Every tensor the launch reads or writes lives as long as the launch.
     launch.keep = (mat, Nk0, Pk0, bN, bP, bE, scalars, n, p, e, its, done)
     return launch, (n, p, e, its, done)

@@ -257,6 +257,8 @@ def simulate(cfg: InferenceConfig, e_data, init_params, X, P, runner: Runner,
     and chunks are already in P.  Returns the (n,) convergence flags over
     the curves and chunks run.
     """
+    if _traced_card and any(d.type == "cuda" for d in runner.mesh):
+        raise RuntimeError(f"simulate: {TRACED_CARD_MESSAGE}")
     num_curves = len(init_params)
     num_exp = len(e_data)
     dtype = resolve_dtype(cfg.device.dtype)
@@ -363,22 +365,40 @@ def _launch_counts():
     return dict(horizon_kernel.launches, newton_step=newton_kernel.launches)
 
 
+# Set once this process has traced the card (profile_trace): a process that
+# has traced the card launches kernels more slowly afterwards than after the
+# same run untraced, and neither gc.collect with a synchronize nor kineto's
+# CUPTI teardown (TEARDOWN_CUPTI=1) restores the rate, so simulate refuses
+# to run there again.
+_traced_card = False
+
+TRACED_CARD_MESSAGE = (
+    "this process has traced the card with torch.profiler ([device] profile_dir), "
+    "and a process that traced the card launches kernels more slowly afterwards: "
+    "run this simulate in a fresh process")
+
+
 @contextlib.contextmanager
 def profile_trace(profile_dir: str, mesh, logger=None):
     """A torch.profiler trace of the block, marked ``simulate``: CPU
     activities, and CUDA ones on the card, written as a Chrome trace to
     ``<profile_dir>/trace_rank<r>.json`` (r the process index).  On the
     card a trace that holds no kernel event raises and nothing is written:
-    it would mean the device tracing (CUPTI) saw nothing.  A process that
-    has traced the card launches kernels more slowly afterwards, so trace
-    a run of its own."""
+    it would mean the device tracing (CUPTI) saw nothing.  A trace on the
+    card marks the process, and a later :func:`simulate` on the card in it
+    raises (chip_smoke.py's ``main_profile`` reads the launch rate around
+    such a trace, tools/launch_rate.py)."""
+    global _traced_card
     from torch.profiler import ProfilerActivity, profile, record_function
     on_card = mesh[0].type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
-    with profile(activities=acts) as prof:
-        with record_function("simulate"):
-            yield
-            synchronize(mesh)
+    try:
+        with profile(activities=acts) as prof:
+            with record_function("simulate"):
+                yield
+                synchronize(mesh)
+    finally:
+        _traced_card = _traced_card or on_card
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"trace_rank{dist.process_index()}.json")
     part = path + ".part"

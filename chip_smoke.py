@@ -16,8 +16,9 @@ Phases, each printed on its own line with its seconds:
 2. compare -- the horizon kernel's chord body against its plain PyTorch
               version (group=1), on the card, on the same inputs: a seeded
               sample box, one curve of the power_scan configuration.  The
-              plain version is a host-bound Python step loop, so both run
-              a shortened ladder (256 fine steps, then 64 coarse steps at
+              plain version is a Python step loop (on the card its steps
+              and iterations CUDA graph replays, models/step_graph.py), so
+              both run a shortened ladder (256 fine steps, then 64 coarse steps at
               each of the strides 16/32/64).  float64 at 64 samples: conv,
               its, fulls and execs equal, final N/P/E bitwise equal,
               sse/esum within 1e-9 relative.  float32 at 1024 samples (the
@@ -51,13 +52,21 @@ Phases, each printed on its own line with its seconds:
               ladder, float64 and float32 at 1024 samples; its time per
               launch by CUDA events.
 9. main_newton_step -- as 3 with method coupled_newton_pallas at 1,024
-              samples: one launch of the per-step kernel per BDF step.
+              samples: one launch of the per-step kernel per BDF step, each
+              step one CUDA graph replay (models/step_graph.py; the replays
+              counted and asserted).  newton_step_routes -- that graph
+              route held bitwise to the eager loop on the ladder's first
+              128 steps, float64 and float32, each timed per step.
 10. compare_variants -- kernel vs plain (group=1), float64 (bitwise state,
               equal counts) and float32, for what the main paths do not
               launch: the previous, linear and geometric predictors, the
               throughput chord profile, the run-time widths L = 32, 64 and
               256, and batches that are not a multiple of the samples per
               block (horizon kernel and per-step kernel).
+              chord_refresh_cost -- the plain chord chain's Jacobian
+              refresh, chosen on the host before each iteration, against
+              the refresh on every iteration: the chain's wall and an
+              iteration's replay on the card with it and without it.
 11. compare_exact, time_exact -- exact fixed-dt mode (no ladder: one
               stride-1 launch over the whole horizon under the throughput
               chord profile, geometric predictor): kernel vs plain
@@ -72,7 +81,10 @@ Phases, each printed on its own line with its seconds:
               float32; then one 80,000-step launch at chunk 1024 timed by
               CUDA events.  time_step_loops -- the step-loop route of the
               same solve (coupled_newton; coupled_newton_pallas) per step on
-              a short horizon, against the record launch per step.
+              a short horizon, eager and graph route (bitwise the same),
+              against the record launch per step; the graph route's
+              steady state (every piece a replay) on the host clock and
+              on the card.
     compare_record_states, time_record_states -- the record launch with
               the state and iteration traces of the forward model's
               standalone mode (models/driver.pvsim): kernel vs plain
@@ -99,10 +111,15 @@ Phases, each printed on its own line with its seconds:
               host's make_grid.  The same TOML with fused_horizon (one
               full-Newton launch) against it: posterior equivalence, finite
               patterns and the relative P difference (GS_P_RTOL).  Prints
-              the wall per BDF step, the iterations per step, the converged
-              share (and what max_iters 32/64/128 would converge), and the
-              host share of an iteration (its device time from a CUDA-graph
-              replay) against the full-Newton launch.
+              the wall per BDF step (graph route: each step's start and end
+              and every iteration a CUDA graph replay, the exit test lagged
+              one iteration; the replays asserted), the iterations per step
+              (the eager loop's sweeps and the replays), the converged
+              share, the ms per iteration and its host share (its device
+              time from a CUDA-graph replay of newton_iteration) against
+              the full-Newton launch; then the graph route held bitwise to
+              the eager loop over the first GS_CHECK_STEPS steps, both timed,
+              with what max_iters 32/64/128 would converge over them.
     main_legacy -- utils/legacy_pipeline.grid_refine_bayes with
               make_trpl_forward on power_scan's forward model (L 128,
               80,000 steps, float32, fused_horizon), PL every 200 steps
@@ -164,8 +181,11 @@ Phases, each printed on its own line with its seconds:
     main_profile -- main's inputs at 4,096 samples with [device]
               profile_dir: the torch.profiler trace read back, the device
               idle share over simulate's window and over the chunk loop, the
-              longest gaps between kernels.  It runs after phase 14: a
-              process that traced the card launches slower afterwards.
+              longest gaps between kernels; the host's launch rate
+              (tools/launch_rate.py) before, after the same run untraced,
+              after the traced run, after gc.collect and a synchronize, and
+              in a fresh process.  It runs after phase 14
+              (PROFILE_RESERVE_S).
 
 Phases 12 and 14 take ~0.6 s per 80,000-step exact launch and main_interp
 its record launch per chunk-curve; when the projected total passes
@@ -181,6 +201,7 @@ the package beside it; it writes only to a temp dir and under build/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import logging
@@ -279,7 +300,10 @@ RUN_OVERHEAD_S = 4.0
 INTERP_SAMPLES = 4096
 RECORD_SHORT_SCHED = ((1, 256),)
 RECORD_F64_RTOL = 1e-12
-STEP_LOOP_STEPS = (("coupled_newton", 8), ("coupled_newton_pallas", 128))
+STEP_LOOP_STEPS = (("coupled_newton", 32), ("coupled_newton_pallas", 128))
+# The steps after which every step class (models/step_graph.step_class:
+# 0-3, then 4 + t % 6) has been captured once.
+STEADY_SKIP = 10
 # The forward model's standalone mode (models/driver.pvsim): the record
 # launch with the state and iteration traces against its plain version on
 # the 256-step phase, float64 at (pl_stride, state stride) pairs and
@@ -324,6 +348,9 @@ E_SCALE = 1e-4
 # settings, ten times its largest difference, rounded up to a power of ten).
 GS_T = 640
 GS_MAX_ITERS = 256
+# The graph route held bitwise to the eager loop over the first steps of
+# main_gauss_seidel's samples (the startup ramp, ~250 sweeps a step).
+GS_CHECK_STEPS = 4
 GS_LEGACY_POINTS = 2
 GS_FINITE_DIFF = 0.01
 GS_P_RTOL = 1e-5
@@ -367,6 +394,8 @@ DEVICE_SAMPLER_SE = 6.0
 # main_newton_step's samples (C9: 4,096 before main_gauss_seidel, whose
 # time they pay for); the same 2,142 launches per chunk-curve.
 NEWTON_STEP_SAMPLES = 1024
+# ... and the steps on which the graph route is held to the eager loop.
+NEWTON_CHECK_STEPS = 128
 # main_resume: samples, and the checkpoint after which the first run stops
 # (curve 1, 2 of its 4 chunks done).
 RESUME_SAMPLES = 4096
@@ -377,13 +406,13 @@ SPLIT_SAMPLES = 2048
 SPLIT_INTERP_SAMPLES = 1024
 SPLIT_CHUNK = 1024
 # main_multiprocess: torchrun's time limit.  main_profile: samples, and the
-# seconds its run takes (10.6-10.9 s on an H100 80GB HBM3), which the
-# exact-mode projection reserves: it runs last, because a process that has
-# traced with CUDA activities launches slower afterwards (the host-bound
-# phases read 15-40% slower when the trace ran before them).
+# seconds it takes with the launch rates (20-25 s on an H100 80GB HBM3: the
+# untraced control run ~1.5 s, the traced run 9-13 s, the trace read back
+# and the rates, a fresh process's among them, 8-10 s), which the
+# exact-mode projection reserves.  It runs last (pipeline.profile_trace).
 MULTIPROCESS_TIMEOUT_S = 300
 PROFILE_SAMPLES = 4096
-PROFILE_RESERVE_S = 12.0
+PROFILE_RESERVE_S = 30.0
 # main_adaptive: the tau_n threshold [ns]; the bucket's ladder is the
 # pipeline's (adaptive_fine_steps 512, adaptive_max_stride 32 by default).
 ADAPTIVE_TAU = 50.0
@@ -462,6 +491,15 @@ def card():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def clocks():
+    """The card's SM and memory clocks, temperature and power draw now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+                          "power.draw", "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (f"SM, memory clocks, temperature, power draw {out.stdout.strip()}"
+            if out.returncode == 0 else "nvidia-smi failed")
 
 
 class Recorder:
@@ -844,13 +882,19 @@ def main():
     print(f"  cut: main_newton_step {n_main // 8:,} -> {NEWTON_STEP_SAMPLES:,} samples "
           f"(pays for main_gauss_seidel)")
     walls = paths.run("", "coupled_newton_pallas", NEWTON_STEP_SAMPLES, {"newton_step": steps})
+    if paths.last_replays != {"step": counts["newton_step"], "iteration": 0}:
+        raise AssertionError(f"main_newton_step: replays {paths.last_replays}, expected one "
+                             f"step graph per launch")
     step_wall_ms = 1e3 * walls / counts["newton_step"]
     step_kernel_ms = float(np.mean([r["kernel_ms"] for r in timing["newton_step"]]))
-    print(f"  main_newton_step: wall per BDF step {step_wall_ms:.4f} ms = kernel "
-          f"{step_kernel_ms:.4f} ms (CUDA events at chunk 1024, float32) + host and "
-          f"launch {step_wall_ms - step_kernel_ms:.4f} ms")
+    print(f"  main_newton_step: wall per BDF step {step_wall_ms:.4f} ms (the CLI run over "
+          f"its steps, graph route: one replay per step) = kernel {step_kernel_ms:.4f} ms "
+          f"(CUDA events at chunk 1024, float32) + host, launch and the step's other "
+          f"kernels {step_wall_ms - step_kernel_ms:.4f} ms")
+    newton_step_routes(args.seed)
     # 10. what the main paths do not launch
     compare_variants(hk, nk, solver, args.seed)
+    chord_refresh_cost(hk, args.seed)
     # 11-12. exact fixed-dt mode: kernel vs plain, one full launch, the CLI;
     # the record launch and the step loops of the interpolation fallback,
     # and its CLI path
@@ -977,6 +1021,24 @@ def entry_layout(hk, nk, mode, recs, ptx):
                 spill_stores=spill[0][1] if spill else None)
 
 
+def newton_step_routes(seed):
+    """The graph route against the eager loop for coupled_newton_pallas on
+    the first NEWTON_CHECK_STEPS steps of the ladder at 1024 samples,
+    float64 and float32, recording PL: bitwise; the time per step of each."""
+    t0 = time.perf_counter()
+    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+        run = ladder_inputs(1024, dtype, seed, method="coupled_newton_pallas",
+                            sched=((1, NEWTON_CHECK_STEPS),), pl_stride=1)
+        eager_s, graph_s, rp, _ = hold_routes(lambda: run(None), f"{tag} newton_step check")
+        if rp != {"step": NEWTON_CHECK_STEPS, "iteration": 0}:
+            raise AssertionError(f"{tag} newton_step check: replays {rp}")
+        print(f"  {tag} coupled_newton_pallas graph route vs eager loop, "
+              f"{NEWTON_CHECK_STEPS} steps x 1024 samples: N/P/E, PL trace, its and flags "
+              f"bitwise; eager {1e3 * eager_s / NEWTON_CHECK_STEPS:.4f} ms per step, graph "
+              f"{1e3 * graph_s / NEWTON_CHECK_STEPS:.4f} ms per step")
+    phase("newton_step_routes", t0, "the step graph against the eager loop")
+
+
 def compare_variants(hk, nk, solver, seed):
     """Kernel vs plain (group=1) on VARIANT_SCHED for every VARIANTS entry,
     float64 (64 samples unless ``num``: counts equal, final state bitwise)
@@ -1003,6 +1065,7 @@ def compare_variants(hk, nk, solver, seed):
         print(f"  variant {name} ({method}, {kw or 'power_scan'}): " + "; ".join(msgs),
               flush=True)
     # The per-step kernel at a batch that is not a multiple of 4.
+    from bayesian_inference_trpl_tpu_torch.models import step_graph
     from bayesian_inference_trpl_tpu_torch.models.newton import coupled_newton_step
     steps, orig = [], solver.newton_step
 
@@ -1013,8 +1076,9 @@ def compare_variants(hk, nk, solver, seed):
         return orig(*a, **kw)
     solver.newton_step = rec
     try:
-        ladder_inputs(1001, torch.float64, seed, method="coupled_newton_pallas",
-                      sched=VARIANT_SCHED)(None)
+        with step_graph.route("eager"):
+            ladder_inputs(1001, torch.float64, seed, method="coupled_newton_pallas",
+                          sched=VARIANT_SCHED)(None)
     finally:
         solver.newton_step = orig
     for a, kw in steps[::8]:
@@ -1075,23 +1139,30 @@ def exact_sizes(elapsed_s, launch_s, record_s):
     EXACT_SAMPLES and INTERP_SAMPLES, cut in EXACT_CUTS's order while the
     projected script time (each exact-mode launch ``launch_s``, each record
     launch ``record_s``, each run RUN_OVERHEAD_S, the gate phase alike, and
-    main_profile's PROFILE_RESERVE_S) passes BUDGET_S."""
+    main_profile's PROFILE_RESERVE_S) passes BUDGET_S.  Prints the cuts not
+    taken and the seconds they add against every cut taken."""
     sizes = {"main_exact": EXACT_SAMPLES, "posterior": EXACT_SAMPLES,
              "posterior_offgrid": EXACT_SAMPLES, "main_interp": INTERP_SAMPLES}
 
-    def projected():
+    def projected(sz):
         secs = sum(3 * -(-n // 1024) * (record_s if name == "main_interp" else launch_s)
-                   for name, n in sizes.items())
-        return elapsed_s + secs + (len(sizes) + 1) * RUN_OVERHEAD_S + PROFILE_RESERVE_S
+                   for name, n in sz.items())
+        return elapsed_s + secs + (len(sz) + 1) * RUN_OVERHEAD_S + PROFILE_RESERVE_S
 
+    all_cut = dict(sizes, **dict(EXACT_CUTS))
+    taken = 0
     for name, n in EXACT_CUTS:
-        if projected() <= BUDGET_S:
+        if projected(sizes) <= BUDGET_S:
             break
-        print(f"  cut: projected {projected():.0f} s > {BUDGET_S:.0f} s: {name} "
+        print(f"  cut: projected {projected(sizes):.0f} s > {BUDGET_S:.0f} s: {name} "
               f"{sizes[name]} -> {n} samples")
         sizes[name] = n
+        taken += 1
+    if taken < len(EXACT_CUTS):
+        print(f"  lifted: {', '.join(f'{name} -> {n}' for name, n in EXACT_CUTS[taken:])} "
+              f"not cut; they add {projected(sizes) - projected(all_cut):.2f} s (projected)")
     print(f"  exact-mode and interpolation sizes {sizes}; projected total "
-          f"{projected():.0f} s (exact launch {launch_s:.2f} s, record launch "
+          f"{projected(sizes):.0f} s (exact launch {launch_s:.2f} s, record launch "
           f"{record_s:.2f} s at chunk 1024)")
     return sizes
 
@@ -1153,24 +1224,85 @@ def compare_record(hk, seed, err64, plain32, timing):
 def time_step_loops(seed, record_s):
     """The step-loop route of solve(record_pl=True) (coupled_newton: plain
     PyTorch steps; coupled_newton_pallas: one per-step kernel launch per
-    step) at chunk 1024 in float32, timed per step on a short horizon,
-    against the record launch's time per step."""
+    step) at chunk 1024 in float32, timed per step on a short horizon on
+    the eager route and on the graph route (bitwise the same), against the
+    record launch's time per step; then the graph route's steady state
+    (the steps after STEADY_SKIP, every piece a replay): host and device
+    ms per step."""
     t0 = time.perf_counter()
     per_step = record_s * 1e3 / POWER_SCAN["T"]
     for method, steps in STEP_LOOP_STEPS:
         run = ladder_inputs(1024, torch.float32, seed, method=method, sched=((1, steps),),
                             pl_stride=1)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = run(None)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t1) * 1e3 / steps
+        with timed_runners() as runners:
+            eager_s, graph_s, _, res = hold_routes(lambda: run(None), f"{method} step loop")
         if res.pl.shape != (1024, steps + 1):
             raise AssertionError(f"{method} step loop: trace {tuple(res.pl.shape)}")
-        print(f"  step loop {method}, record_pl, {steps} steps at chunk 1024: {ms:.4f} ms "
-              f"per step = {ms / per_step:.0f}x the record launch's {per_step:.5f} ms; "
-              f"{POWER_SCAN['T']} steps would take {ms * POWER_SCAN['T'] / 1e3:.0f} s")
-    phase("time_step_loops", t0, "the step-loop route per step, for the ratio")
+        for name, secs in (("eager", eager_s), ("graph", graph_s)):
+            ms = secs * 1e3 / steps
+            print(f"  step loop {method} ({name} route), record_pl, {steps} steps at chunk "
+                  f"1024: {ms:.4f} ms per step = {ms / per_step:.0f}x the record launch's "
+                  f"{per_step:.5f} ms; {POWER_SCAN['T']} steps would take "
+                  f"{ms * POWER_SCAN['T'] / 1e3:.0f} s")
+        (runner,) = [r for r in runners if r.calls]
+        st = steady_steps(runner, STEADY_SKIP)
+        print(f"  step loop {method} (graph route), steady state over {st['steps']} of steps "
+              f"{STEADY_SKIP}-{steps - 2} (no capture in them): {st['host_ms']:.4f} ms per "
+              f"step on the host clock, {st['device_ms']:.4f} ms in the replays on the card "
+              f"(device / "
+              f"host {st['device_ms'] / st['host_ms']:.3f}: near 1 the card's work bounds "
+              f"the loop, above 1 the host submits ahead of it); "
+              f"{st['iters']:.2f} iterations per step"
+              + (f", {st['device_ms'] / st['iters']:.4f} ms on the card per iteration "
+                 "(the step's other pieces included)" if st["iters"] else ""))
+    phase("time_step_loops", t0, "the step-loop route per step, for the ratio; the graph "
+          "route bitwise the eager one; its steady state on the host and on the card")
+
+
+def chord_refresh_cost(hk, seed):
+    """The plain chord chain's Jacobian refresh on the graph route, on
+    VARIANT_SCHED's first phase at 1024 samples in float32, group 1: as
+    built (the host reads before each iteration whether some group asks,
+    and replays the iteration's graph with the refresh or without it),
+    against the refresh computed on every iteration and taken by the rows
+    that ask (the device work of a loop that never reads the choice
+    back): the chain's wall, the iterations with a refresh, and the device
+    ms of an iteration's replay with and without it."""
+    t0 = time.perf_counter()
+    base = hk._Chord
+
+    class EveryIteration(base):
+        def variant(self, i):
+            v = super().variant(i)
+            return None if v is None else (v[0], True)
+
+    kernel = functools.partial(hk.horizon_chord_plain, group=1)
+    walls = {}
+    for name, cls in (("as built", base), ("refresh every iteration", EveryIteration)):
+        hk._Chord = cls
+        try:
+            with timed_runners() as runners:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ladder_inputs(1024, torch.float32, seed, sched=VARIANT_SCHED[:1])(kernel)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t1
+        finally:
+            hk._Chord = base
+        torch.cuda.synchronize()
+        ms = {True: [], False: []}
+        for r in runners:
+            for key, captured, _, ev in r.calls:
+                if key[0] == "chord" and not captured:
+                    ms[key[1][1]].append(ev[0].elapsed_time(ev[1]))
+        n = len(ms[True]) + len(ms[False])
+        print(f"  chord chain (graph route), {name}: {walls[name]:.3f} s; {n} replayed "
+              f"iterations, {len(ms[True])} with the refresh; a replay on the card "
+              + ", ".join(f"{'with' if k else 'without'} it {np.mean(v):.4f} ms"
+                          for k, v in ms.items() if v))
+    print(f"  chord chain: as built {walls['as built'] / walls['refresh every iteration']:.3f}"
+          f" of the wall with the refresh on every iteration")
+    phase("chord_refresh_cost", t0, "the plain chord chain's Jacobian refresh on the card")
 
 
 def compare_record_states(hk, seed, err64, plain32):
@@ -1317,12 +1449,108 @@ def gauss_seidel_grid():
                 max_iters=GS_MAX_ITERS, step_tol=None, predictor="previous")
 
 
+def hold_routes(run, label):
+    """``run()`` (a solve) on the eager route, then on the graph route (the
+    default on the card): every output bitwise equal.  Returns (eager s,
+    graph s, the graph run's replays, the eager result)."""
+    from bayesian_inference_trpl_tpu_torch.models import step_graph
+    secs = []
+    for name in ("eager", None):
+        torch.cuda.synchronize()
+        before = dict(step_graph.replays)
+        t0 = time.perf_counter()
+        with step_graph.route(name) if name else contextlib.nullcontext():
+            out = run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if name:
+            ref = out
+    replays = {k: v - before[k] for k, v in step_graph.replays.items()}
+    for field, a, b in zip(ref._fields, ref, out):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            same = x is None and y is None or (
+                x is not None and y is not None and x.shape == y.shape
+                and torch.equal(torch.isnan(x), torch.isnan(y))
+                and torch.equal(x.nan_to_num(0.0), y.nan_to_num(0.0)))
+            if not same:
+                raise AssertionError(f"{label}: graph route's {field} not bitwise the "
+                                     f"eager route's")
+    return secs[0], secs[1], replays, ref
+
+
+@contextlib.contextmanager
+def timed_runners():
+    """Every models/step_graph.StepRunner made in the block (models/solver,
+    twophase and offgrid and ops/horizon_kernel make them) records each
+    piece it runs on the graph route: its key, whether that call captured
+    it, the host clock at the call, and CUDA events around the replay
+    (device time: the stream is idle when a host-bound loop submits it).
+    Yields the list of runners."""
+    from bayesian_inference_trpl_tpu_torch.models import offgrid, solver, step_graph, twophase
+    from bayesian_inference_trpl_tpu_torch.ops import horizon_kernel
+    made, base = [], step_graph.StepRunner
+
+    class Timed(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.calls = []
+            made.append(self)
+
+        def run(self, key, fn, kind="step"):
+            if self.route != "graph":
+                return super().run(key, fn, kind)
+            captured = key not in self.graphs
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t = time.perf_counter()
+            ev[0].record()
+            super().run(key, fn, kind)
+            ev[1].record()
+            self.calls.append((key, captured, t, ev))
+
+    mods = (solver, twophase, offgrid, horizon_kernel)
+    for m in mods:
+        m.StepRunner = Timed
+    try:
+        yield made
+    finally:
+        for m in mods:
+            m.StepRunner = base
+
+
+def steady_steps(runner, skip):
+    """The graph route's steady state over a timed runner's steps after
+    the first ``skip`` (by then every step class is captured), each step
+    with no capture in it (a Newton loop's final-check variant may first
+    come later): host ms per step (between the starts of successive
+    steps), device ms per step (the replays' events) and iterations per
+    step, means over those steps."""
+    torch.cuda.synchronize()
+    calls = runner.calls
+    starts = [i for i, c in enumerate(calls) if c[0][0] in ("start", "step")]
+    host = dev = iters = 0.0
+    n = 0
+    for lo, hi in zip(starts[skip:], starts[skip + 1:]):
+        window = calls[lo:hi]
+        if any(c[1] for c in window):
+            continue
+        n += 1
+        host += (calls[hi][2] - calls[lo][2]) * 1e3
+        dev += sum(ev[0].elapsed_time(ev[1]) for _, _, _, ev in window)
+        iters += sum(1 for c in window if c[0][0] in ("newton", "chord"))
+    if not n:
+        raise AssertionError("steady_steps: every step after the first captured a piece")
+    return dict(steps=n, host_ms=host / n, device_ms=dev / n, iters=iters / n)
+
+
 def gauss_seidel_phase(paths, hk, solver):
     """main_gauss_seidel: the reference scheme through the CLI, then the
     same TOML with fused_horizon (one full-Newton launch); the checks and
-    figures of GS_T's comment."""
+    figures of GS_T's comment; then the graph route against the eager loop
+    on the first GS_CHECK_STEPS steps of the same samples (GS_CHECK_STEPS)."""
     from bayesian_inference_trpl_tpu_torch import physics
-    from bayesian_inference_trpl_tpu_torch.models import trpl
+    from bayesian_inference_trpl_tpu_torch.models import step_graph, trpl
+    from bayesian_inference_trpl_tpu_torch.models.driver import SimParams
+    from bayesian_inference_trpl_tpu_torch.parallel import runner as runner_mod
     from bayesian_inference_trpl_tpu_torch.tools.posterior_equivalence import (
         compare_posteriors)
     from bayesian_inference_trpl_tpu_torch.utils import sampling
@@ -1330,26 +1558,25 @@ def gauss_seidel_phase(paths, hk, solver):
     n = GS_LEGACY_POINTS ** sum(lo != hi for lo, hi in zip(MIN_X, MAX_X))
     print(f"  cut: T {POWER_SCAN['T']:,} -> {GS_T:,} steps (dt 25 ps) for main_gauss_seidel; "
           f"max_iters {GS_MAX_ITERS}; {n} legacy-grid samples, one curve", flush=True)
-    steps = []
-    step = solver.implicit_step
+    # The step loop's wall: the solve of the one chunk, synchronised.
+    solves, solve = [], runner_mod.solve
 
-    def recording(*a, **kw):
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = step(*a, **kw)
-        its = out[3]
-        steps.append((t1, time.perf_counter(), its.max(), its.float().mean()))
-        if len(steps) == 1:
-            recording.args, recording.peak = a[:8], its
-        recording.peak = torch.maximum(recording.peak, its)
-        return out
+        res = solve(*a, **kw)
+        torch.cuda.synchronize()
+        solves.append((time.perf_counter() - t1, res))
+        return res
 
     kw = dict(exact=True, grid_extra=gauss_seidel_grid(), keep_counts=False, num_curves=1,
               dtype="float64", legacy_points=GS_LEGACY_POINTS)
-    solver.implicit_step = recording
+    runner_mod.solve = timed
     try:
         paths.run("", "gauss_seidel", n, {}, name="main_gauss_seidel", **kw)
     finally:
-        solver.implicit_step = step
+        runner_mod.solve = solve
+    replays = paths.last_replays
     launch = Recorder(hk.horizon_chord)
     hk.horizon_chord = launch
     try:
@@ -1357,9 +1584,12 @@ def gauss_seidel_phase(paths, hk, solver):
                   name="main_gauss_seidel_full", **kw)
     finally:
         hk.horizon_chord = launch.fn
-    if len(steps) != GS_T or len(launch.calls) != 1:
-        raise AssertionError(f"main_gauss_seidel: {len(steps)} Gauss-Seidel steps, "
-                             f"{len(launch.calls)} full-Newton launches")
+    # One graph for each step's start and end, the iterations replayed with
+    # the exit test lagged one iteration.
+    if (len(solves) != 1 or len(launch.calls) != 1 or replays["step"] != 2 * GS_T
+            or replays["iteration"] < GS_T):
+        raise AssertionError(f"main_gauss_seidel: {len(solves)} solves, "
+                             f"{len(launch.calls)} full-Newton launches, replays {replays}")
 
     cfg = paths.configs["main_gauss_seidel"]
     min_x, max_x = cfg.params.bounds_converted()
@@ -1384,44 +1614,81 @@ def gauss_seidel_phase(paths, hk, solver):
     if failed:
         raise AssertionError(f"main_gauss_seidel: {', '.join(failed)} check failed")
 
-    sweeps = torch.stack([s[2] for s in steps]).double().cpu().numpy()
-    per_sample = torch.stack([s[3] for s in steps]).cpu().numpy()
-    step_ms = [1e3 * (s[1] - s[0]) for s in steps]
-    wall_ms = 1e3 * (steps[-1][1] - steps[0][0]) / GS_T
-    iter_ms = sum(step_ms) / sweeps.sum()
-    # Device time of one iteration: newton_iteration replayed as a CUDA graph
-    # on the first step's inputs (the loop's ~15 bookkeeping operations and
-    # its host read left out).  A graph cannot capture the host-to-card copy
-    # that writes trpl._onehot's 1, so the capture builds the same rows on
-    # the card.
-    args = recording.args
-    onehot = trpl._onehot
-    trpl._onehot = lambda x, idx: (torch.arange(x.shape[-1], device=x.device)
-                                   == idx).to(x.dtype)[None]
-    try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            trpl.newton_iteration(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            trpl.newton_iteration(*args)
-    finally:
-        trpl._onehot = onehot
+    # The figures.  The eager loop ran k sweeps a step where the graph route
+    # replays k + 1 (its exit test lags one), or max_iters at the limit.
+    wall_s, res = solves[0]
+    wall_ms = 1e3 * wall_s / GS_T
+    replayed = replays["iteration"]
+    sweeps = replayed - GS_T
+    at_limit = int(res.max_newton_iters) >= GS_MAX_ITERS
+    # Device time of one iteration: newton_iteration replayed as a CUDA
+    # graph on the first step's inputs (the loop's ~15 bookkeeping
+    # operations left out).
+    g = POWER_SCAN
+    sim = SimParams(length=g["thickness"], time=gauss_seidel_grid()["time"], L=g["L"],
+                    T=GS_T, tol_exp=7.0, max_iters=GS_MAX_ITERS, method="gauss_seidel",
+                    predictor="previous")
+    mat = torch.as_tensor(physics.nondimensionalize(X_host[:, :12], sim.dx, sim.dt),
+                          dtype=torch.float64, device="cuda")
+    dn = torch.as_tensor(excitation_profiles(g["L"], g["thickness"], 1)[0] * sim.dx ** 3,
+                         dtype=torch.float64, device="cuda")
+    n0, p0 = (mat[:, 0:1] + dn[None]).contiguous(), (mat[:, 1:2] + dn[None]).contiguous()
+    e0 = torch.zeros_like(n0)
+    a0 = torch.as_tensor(trpl.BDF_TABLE[0, 0], dtype=torch.float64, device="cuda")
+    args = (n0, p0, e0, -n0, -p0, -e0, trpl.MatParams.from_array(mat), a0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trpl.newton_iteration(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        trpl.newton_iteration(*args)
     dev_ms = cuda_ms(graph.replay, 20)
     launch_ms = 1e3 * launch.calls[0][2]
-    print(f"  gauss_seidel: wall per BDF step {wall_ms:.3f} ms; iterations per step (the "
-          f"loop's sweeps) mean {sweeps.mean():.2f}, max {int(sweeps.max())}; per sample mean "
-          f"{per_sample.mean():.2f}; converged share {float(np.isfinite(P_gs).mean()):.4f}; "
-          f"the share that max_iters m would converge: " + ", ".join(f"{m} {float((recording.peak <= m).float().mean()):.4f}"
-                                    for m in (32, 64, 128, 256)))
-    print(f"  gauss_seidel: {iter_ms:.3f} ms per iteration, of which {dev_ms:.3f} ms on the "
-          f"card (newton_iteration as a CUDA graph): host share {1 - dev_ms / iter_ms:.3f}; "
-          f"the full-Newton launch {launch_ms:.1f} ms = {launch_ms / GS_T:.4f} ms per step: "
-          f"the Gauss-Seidel loop takes {wall_ms * GS_T / launch_ms:.0f}x its time per step")
+    print(f"  gauss_seidel (graph route): wall per BDF step {wall_ms:.3f} ms; iterations per "
+          f"step (the eager loop's sweeps) mean {sweeps / GS_T:.2f}, replayed "
+          f"{replayed / GS_T:.2f} (the exit lags one"
+          + ("; a step reached max_iters, so the sweeps are a lower bound" if at_limit
+             else "") + f"); per sample mean "
+          f"{float(res.sample_iters.double().mean()) / GS_T:.2f}; converged share "
+          f"{float(np.isfinite(P_gs).mean()):.4f}")
+    print(f"  gauss_seidel: {1e3 * wall_s / replayed:.3f} ms per replayed iteration "
+          f"({1e3 * wall_s / sweeps:.3f} ms per sweep of the eager loop), of which "
+          f"{dev_ms:.3f} ms on the card (newton_iteration as a CUDA graph): host share "
+          f"{1 - dev_ms * replayed / (1e3 * wall_s):.3f}; the full-Newton launch "
+          f"{launch_ms:.1f} ms = {launch_ms / GS_T:.4f} ms per step: the Gauss-Seidel loop "
+          f"takes {wall_ms * GS_T / launch_ms:.0f}x its time per step")
+
+    # The graph route against the eager loop on the first steps (each a
+    # few hundred sweeps from the initial condition), at the same settings.
+    peak = []
+    implicit = solver.implicit_step
+
+    def recording(*a, **k):
+        out = implicit(*a, **k)
+        peak.append(out[3])
+        return out
+    cfg_check = sim.solver_config()._replace(num_steps=GS_CHECK_STEPS)
+    solver.implicit_step = recording
+    try:
+        eager_s, graph_s, rp, ref = hold_routes(
+            lambda: solver.solve(mat, n0, p0, e0, cfg_check, record_pl=True),
+            "main_gauss_seidel check")
+    finally:
+        solver.implicit_step = implicit
+    peak = torch.stack(peak).amax(0)
+    its = int(rp["iteration"]) - GS_CHECK_STEPS
+    print(f"  gauss_seidel graph route vs eager loop, first {GS_CHECK_STEPS} steps, {n} "
+          f"samples, float64: N/P/E, PL trace, its and flags bitwise; {its} sweeps: eager "
+          f"{1e3 * eager_s / GS_CHECK_STEPS:.2f} ms per step, {1e3 * eager_s / its:.3f} ms "
+          f"per sweep; graph {1e3 * graph_s / GS_CHECK_STEPS:.2f} ms per step, "
+          f"{1e3 * graph_s / rp['iteration']:.3f} ms per replayed iteration; the share "
+          f"that max_iters m would converge over these steps: "
+          + ", ".join(f"{m} {float((peak <= m).float().mean()):.4f}"
+                      for m in (32, 64, 128, 256)))
     phase("main_gauss_seidel", t0, f"{n} samples x 1 curve x {GS_T} steps, float64: "
-          f"Gauss-Seidel vs full Newton PASS")
+          f"Gauss-Seidel vs full Newton PASS; graph route bitwise the eager loop")
 
 
 def jax_model_err(F, ref):
@@ -2194,12 +2461,25 @@ def profile_phase(paths, seed, card_line):
     """main_profile: main's inputs at PROFILE_SAMPLES samples with [device]
     profile_dir; the trace read back: the device idle share over
     simulate's window and over the chunk loop (first kernel to simulate's
-    end), and the longest gaps between kernels."""
+    end), and the longest gaps between kernels.  Around it, C10's launch
+    rates (tools/launch_rate.py): before, after the same run untraced (the
+    control), after the traced run, after a teardown (gc.collect and a
+    synchronize), and in a fresh process."""
+    import gc
+    from bayesian_inference_trpl_tpu_torch.tools import launch_rate
     rungs = len(ladder_schedule(False)[1]) - 1
+    run = functools.partial(paths.run, "", "fused_horizon_chord", PROFILE_SAMPLES,
+                            {"stride_1": 1, "stride_s": rungs}, keep_counts=False)
+    rates = {"before": launch_rate.launch_us()}
+    run(name="main_profile_control")
+    rates["after the same run untraced"] = launch_rate.launch_us()
     with tempfile.TemporaryDirectory(prefix="trpl_smoke_") as tdir:
-        paths.run("", "fused_horizon_chord", PROFILE_SAMPLES, {"stride_1": 1, "stride_s": rungs},
-                  name="main_profile", keep_counts=False, profile_dir=tdir)
+        run(name="main_profile", profile_dir=tdir)
         t0 = time.perf_counter()
+        rates["after the traced run"] = launch_rate.launch_us()
+        gc.collect()
+        torch.cuda.synchronize()
+        rates["after gc.collect and synchronize"] = launch_rate.launch_us()
         files = os.listdir(tdir)
         if files != ["trace_rank0.json"]:
             raise AssertionError(f"main_profile: trace files {files}")
@@ -2213,7 +2493,18 @@ def profile_phase(paths, seed, card_line):
           f"kernel to simulate's end) {rep['loop_ms']:.1f} ms: idle share "
           f"{rep['loop_idle']:.4f}; before the first kernel {rep['lead_ms']:.1f} ms; longest "
           f"gaps between kernels {rep['gaps_ms']} ms; {card_line}")
-    phase("main_profile_trace", t0, "torch.profiler trace of simulate read back")
+    out = subprocess.run([sys.executable, "-m",
+                          "bayesian_inference_trpl_tpu_torch.tools.launch_rate"],
+                         capture_output=True, text=True, timeout=120, check=True)
+    rates["in a fresh process"] = json.loads(out.stdout.strip().splitlines()[-1])["rate"]
+    ref = rates["before"]
+    print(f"  launch rate (us per launch of {launch_rate.LAUNCHES} one-element adds, fastest "
+          f"/ median of {launch_rate.REPEATS} loops; against the rate before): " + "; ".join(
+              f"{k} {r['min']:.3f} / {r['median']:.3f} ({r['min'] / ref['min'] - 1:+.1%} / "
+              f"{r['median'] / ref['median'] - 1:+.1%})" for k, r in rates.items())
+          + f"; {card_line}")
+    phase("main_profile_trace", t0, "torch.profiler trace of simulate read back; the "
+          "launch rates")
 
 
 def trace_idle(events):
@@ -2382,13 +2673,16 @@ def compare_modes(hk, kind, method, seed, err64, plain32, timing):
               f"{100 * r['bound_ms'] / r['kernel_ms']:.1f}% of it reached); "
               f"conv {int(out.conv.sum())}/1024, its/sample {float(out.its.float().mean()):.1f}, "
               f"fulls/sample {float(out.fulls.float().mean()):.1f}")
+    print(f"  after the timed launches: {clocks()}")
     phase(f"time{suffix}", t0, "kernel per launch on the full ladder at chunk 1024")
 
 
 def compare_newton_step(nk, solver, seed, err64, plain32, timing):
     """The per-step kernel against coupled_newton_step on the recorded
     inputs of steps from every phase of the shortened ladder, run with
-    coupled_newton_pallas (float64 and float32, 1024 samples)."""
+    coupled_newton_pallas (float64 and float32, 1024 samples) on the eager
+    route, whose steps call the wrapper."""
+    from bayesian_inference_trpl_tpu_torch.models import step_graph
     from bayesian_inference_trpl_tpu_torch.models.newton import coupled_newton_step
     T1 = POWER_SCAN["fast_fine_steps"]
     starts = [0, T1] + [T1 + k * SHORT_RUNG_STEPS for k in (1, 2)]
@@ -2407,7 +2701,9 @@ def compare_newton_step(nk, solver, seed, err64, plain32, timing):
             return orig(*a, **kw)
         solver.newton_step = rec
         try:
-            ladder_inputs(1024, dtype, seed, method="coupled_newton_pallas", short=True)(None)
+            with step_graph.route("eager"):
+                ladder_inputs(1024, dtype, seed, method="coupled_newton_pallas",
+                              short=True)(None)
         finally:
             solver.newton_step = orig
         assert seen[0] == T1 + 3 * SHORT_RUNG_STEPS, seen[0]
@@ -2486,14 +2782,16 @@ class MainPaths:
         return dict(self.hk.launches, newton_step=self.nk.launches, **histogram.launches)
 
     def zero(self):
+        from bayesian_inference_trpl_tpu_torch.models import step_graph
         from bayesian_inference_trpl_tpu_torch.ops import histogram
-        for d in (self.hk.launches, histogram.launches):
+        for d in (self.hk.launches, histogram.launches, step_graph.replays):
             for k in d:
                 d[k] = 0
         self.nk.launches = 0
 
     def cli(self, cfg_path, tmp, *extra):
-        """One CLI run; returns (wall seconds, launches)."""
+        """One CLI run; returns (wall seconds, launches); its graph replays
+        go to ``last_replays``."""
         self.zero()
         t0 = time.perf_counter()
         try:
@@ -2503,6 +2801,8 @@ class MainPaths:
             logging.getLogger("bayes-trpl-torch").handlers.clear()
         if rc != 0:
             raise RuntimeError(f"run.main returned {rc}")
+        from bayesian_inference_trpl_tpu_torch.models import step_graph
+        self.last_replays = dict(step_graph.replays)
         return time.perf_counter() - t0, self.launches()
 
     def run(self, kind, method, num_points, per_chunk_curve, exact=False,

@@ -1,13 +1,16 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 horizon kernel (chord and full Newton, every mode), the per-step Newton
 kernel and the weighted histograms (with the posterior on the card against
-the CPU).
+the CPU); the step loops' graph route (models/step_graph.py) against their
+eager route.
 
 Needs an NVIDIA GPU and skips without one.  The file imports neither JAX
 nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +19,7 @@ from bayesian_inference_trpl_tpu_torch import physics
 from bayesian_inference_trpl_tpu_torch.models import offgrid
 from bayesian_inference_trpl_tpu_torch.models.driver import (
     SimParams, initial_excess_density, pl_log_scale)
-from bayesian_inference_trpl_tpu_torch.models import solver
+from bayesian_inference_trpl_tpu_torch.models import solver, step_graph
 from bayesian_inference_trpl_tpu_torch.models.newton import coupled_newton_step
 from bayesian_inference_trpl_tpu_torch.models.solver import FusedObs, SolverConfig
 from bayesian_inference_trpl_tpu_torch.models.twophase import solve_multiphase
@@ -168,7 +171,8 @@ def test_newton_step_kernel_matches_plain(cuda_device, monkeypatch):
         return nk.newton_step(*args, **kw)
     monkeypatch.setattr(solver, "newton_step", rec)
     before = nk.launches
-    res = solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 16), (16, 16)))
+    with step_graph.route("eager"):
+        res = solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 16), (16, 16)))
     assert nk.launches - before == len(steps) == 36 + 2 + 1
     assert res.converged.any()
     for args, kw in steps:
@@ -289,7 +293,8 @@ def test_newton_step_tail_matches_plain(cuda_device, monkeypatch, L, B):
         steps.append((args, kw))
         return nk.newton_step(*args, **kw)
     monkeypatch.setattr(solver, "newton_step", rec)
-    solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 8), (16, 16)))
+    with step_graph.route("eager"):
+        solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 36), (8, 8), (16, 16)))
     for args, kw in steps[::4]:
         out = nk.newton_step(*args, **kw)
         ref = coupled_newton_step(*args, **kw)
@@ -514,7 +519,8 @@ def _first_calls(device):
     orig = solver.newton_step
     solver.newton_step = lambda *a, **kw: steps.append((a, kw)) or orig(*a, **kw)
     try:
-        solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 4),))
+        with step_graph.route("eager"):
+            solve_multiphase(mat, n0, p0, e0, cfg, obs, ((1, 4),))
     finally:
         solver.newton_step = orig
     return calls[0], steps[0]
@@ -748,3 +754,122 @@ def test_pinned_marginals_on_card_match_cpu(cuda_device):
     for k in ph:
         for u, v in zip(pc[k], ph[k]):
             same(u, v)
+
+
+# ---------------------------------------------------------------------------
+# The step loops' graph route (models/step_graph.py) against the eager route
+# ---------------------------------------------------------------------------
+
+def _bitwise(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, tuple):
+        return all(_bitwise(x, y) for x, y in zip(a, b))
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def _routes(fn):
+    """fn() on the eager route, then on the graph route (the default);
+    returns both, and the graph route's launches and replays."""
+    with step_graph.route("eager"):
+        ref = fn()
+    launches, replays = nk.launches, dict(step_graph.replays)
+    got = fn()
+    torch.cuda.synchronize()
+    return ref, got, nk.launches - launches, {k: v - replays[k] for k, v
+                                              in step_graph.replays.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["coupled_newton", "coupled_newton_pallas",
+                                    "gauss_seidel"])
+def test_graph_route_matches_eager(cuda_device, method, dtype):
+    """A batch of 1001 over a masked ladder (8 fine steps, two rungs) and a
+    solve recording PL every 2 steps with the state and iteration traces:
+    every output bitwise the eager route's.  The per-step kernel launches
+    once per replay of its step's graph, one graph per step."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, dtype, B=1001, T=40, method=method)
+    sched = ((1, 8), (4, 16), (8, 16))
+    rec = cfg._replace(num_steps=16, pl_stride=2, record_state_stride=4, record_iters=True)
+
+    def run():
+        return (tuple(solve_multiphase(mat, n0, p0, e0, cfg, obs, sched))
+                + tuple(solver.solve(mat, n0, p0, e0, rec)))
+    ref, got, launches, replays = _routes(run)
+    assert _bitwise(ref, got)
+    steps = 8 + 4 + 2 + 16
+    if method == "coupled_newton_pallas":
+        assert launches == replays["step"] == steps and replays["iteration"] == 0
+    else:
+        assert launches == 0 and replays["step"] == 2 * steps
+        assert replays["iteration"] >= steps
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["fused_horizon_chord", "fused_horizon"])
+@pytest.mark.parametrize("where", ["ladder", "offgrid"])
+def test_graph_route_plain_chains_match_eager(cuda_device, method, dtype, where):
+    """The plain chains (chord, group 1, and full Newton) at stride 1 and
+    stride S, and off-grid, batch 1001: bitwise the eager route's."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, dtype, B=1001, T=40, method=method)
+    sched = ((1, 8), (4, 16), (8, 16))
+    plain = functools.partial(hk.horizon_chord_plain, group=1)
+    if where == "ladder":
+        def run():
+            return tuple(solve_multiphase(mat, n0, p0, e0, cfg, obs, sched, kernel=plain))
+    else:
+        sim = SimParams(length=311.0, time=2000.0 * 40 / 80000, L=128, T=40)
+        t = np.concatenate([[0.0], np.geomspace(0.7 * sim.dt, 38.6 * sim.dt, 30)])
+        tables = offgrid.build_offgrid_tables([t], [np.linspace(-2.0, -4.0, t.size)],
+                                              sched, sim.dt)
+
+        def run():
+            return tuple(offgrid.solve_offgrid(mat, n0, p0, e0, cfg, tables, sched,
+                                               pl_log_scale(sim), 1e-300, kernel=plain))
+    ref, got, _, replays = _routes(run)
+    assert _bitwise(ref, got) and replays["iteration"] > 0
+
+
+def test_traced_process_refuses_simulate(cuda_device, monkeypatch, tmp_path):
+    """A process that traced the card (pipeline.profile_trace, as
+    [device] profile_dir traces simulate) refuses a later simulate on the
+    card, before any work: it would launch more slowly."""
+    from bayesian_inference_trpl_tpu_torch import pipeline
+    from bayesian_inference_trpl_tpu_torch.config import InferenceConfig
+    from bayesian_inference_trpl_tpu_torch.parallel.runner import Runner
+    monkeypatch.setattr(pipeline, "_traced_card", False)
+    x = torch.zeros(8, device=cuda_device)
+    with pipeline.profile_trace(str(tmp_path), [torch.device(cuda_device)]):
+        for _ in range(10):
+            x.add_(1.0)
+    assert (tmp_path / "trace_rank0.json").exists() and pipeline._traced_card
+    launches = dict(hk.launches, newton_step=nk.launches)
+    with pytest.raises(RuntimeError, match="traced the card"):
+        pipeline.simulate(InferenceConfig(), [], [], np.zeros((4, 13)), np.zeros((1, 4)),
+                          Runner(chunk=4, device=cuda_device))
+    assert dict(hk.launches, newton_step=nk.launches) == launches
+
+
+def test_failed_capture_raises_without_fallback(cuda_device, monkeypatch):
+    """A piece that waits on the host inside its capture (forced here: the
+    PL read back in the step's end) fails the capture, and the solve
+    raises; the eager step never runs.  Last in the file: the failed
+    capture leaves its stream's memory pool behind."""
+    mat, n0, p0, e0, obs, cfg = _problem(cuda_device, torch.float64, B=8, T=8,
+                                         method="coupled_newton_pallas")
+    pl_observable = solver.pl_observable
+
+    def reads_back(N, P, mp):
+        out = pl_observable(N, P, mp)
+        float(out.sum())
+        return out
+
+    def eager(*a, **kw):
+        raise AssertionError("the eager step ran")
+    monkeypatch.setattr(solver, "pl_observable", reads_back)
+    monkeypatch.setattr(solver, "bdf_step", eager)
+    before = nk.launches
+    with pytest.raises(RuntimeError):
+        solver.solve(mat, n0, p0, e0, cfg, obs=obs)
+    assert nk.launches == before
